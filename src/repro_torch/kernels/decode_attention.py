@@ -1,0 +1,136 @@
+"""Decode attention: one query token per sequence against a KV cache.
+
+Port of the Pallas TPU kernel `repro/kernels/decode_attention.py`.  The
+CUDA kernel (`csrc/decode_attention.cu`, whose note gives its bound and
+design) is flash-decoding: the KV axis is cut into splits of `SPLIT_LEN`
+rows, each split reduces to a partial (max, sum, acc) per query head, and a
+second kernel merges the partials.  `decode_attention_plain` is the same
+function in plain PyTorch (`ref.decode_attention_reference` behind the
+kernel's checks); it serves CPU tensors and the tests, and is what the
+kernel is held against on the card.
+
+`launches` counts the kernel's launches (one per call of
+`decode_attention_cuda`), so a run can show that its path went through the
+kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .ref import decode_attention_reference
+
+SPLIT_LEN = 256     # cache rows per block of the split pass
+MAX_GROUP = 8       # query heads per KV head the kernel takes
+MAX_HEAD_DIM = 256
+
+launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_shapes(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor) -> None:
+    """Raise on what the kernel does not take."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be (B, 1, H, d), got {tuple(q.shape)}")
+    B, _, H, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != B or k_cache.shape[3] != d:
+        raise ValueError(f"caches must be (B, Skv, Hk, d) matching q: "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    Hk = k_cache.shape[2]
+    if H % Hk or H // Hk > MAX_GROUP:
+        raise ValueError(f"H={H} must be a multiple of Hk={Hk}, "
+                         f"at most {MAX_GROUP} times it")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} must be a multiple of 8, <= {MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPE_CODE or k_cache.dtype != q.dtype \
+            or v_cache.dtype != q.dtype:
+        raise ValueError(f"dtypes must all be fp32 or bf16: "
+                         f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+
+
+def kv_lengths(kv_len, B: int, Skv: int, device: torch.device) -> torch.Tensor:
+    """kv_len (int, or a (B,) / scalar tensor) as int32 (B,) on `device`.
+    Values that live on the host are checked to lie in [1, Skv]; a tensor
+    already on the card is not (that would wait for the card), and the
+    kernel clamps it into that range."""
+    if isinstance(kv_len, torch.Tensor) and kv_len.device == device \
+            and kv_len.dtype == torch.int32 and kv_len.shape == (B,) \
+            and kv_len.is_contiguous():
+        return kv_len                   # as the model passes it to each layer
+    lens = torch.as_tensor(kv_len)
+    if lens.device.type == "cpu":
+        if lens.numel() and not bool(((lens >= 1) & (lens <= Skv)).all()):
+            raise ValueError(f"kv_len must lie in [1, {Skv}]: {lens.tolist()}")
+    lens = lens.to(device=device, dtype=torch.int32).reshape(-1)
+    if lens.numel() not in (1, B):
+        raise ValueError(f"kv_len must be a scalar or ({B},), got {lens.numel()}")
+    return lens.expand(B).contiguous()
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the same checks, then
+    `ref.decode_attention_reference` (one softmax over the whole cache)."""
+    check_shapes(q, k_cache, v_cache)
+    lens = kv_lengths(kv_len, q.shape[0], k_cache.shape[1], q.device)
+    return decode_attention_reference(q, k_cache, v_cache, lens)
+
+
+def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+    """Launch the CUDA kernel.  q: (B,1,H,d); caches (B,Skv,Hk,d), read in
+    place through their strides (unit stride on d); kv_len int or (B,).
+    Raises on anything the kernel does not take, or if the launch fails."""
+    global launches
+    check_shapes(q, k_cache, v_cache)
+    dev = q.device
+    if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
+        raise ValueError("decode_attention_cuda needs all tensors on one "
+                         "CUDA device")
+    B, _, H, d = q.shape
+    Skv, Hk = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hk
+    item = q.element_size()
+    for t in (k_cache, v_cache):
+        if t.stride(3) != 1 or t.data_ptr() % 16 \
+                or any(t.stride(i) * item % 16 for i in range(3)):
+            raise ValueError("caches need unit stride on d and 16-byte "
+                             f"aligned rows; strides {t.stride()}")
+    q = q.contiguous()
+    lens = kv_lengths(kv_len, B, Skv, dev)
+    ns = -(-Skv // SPLIT_LEN)
+    out = torch.empty_like(q)
+    part_m = torch.empty(B * Hk * ns * G, device=dev, dtype=torch.float32)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty(B * Hk * ns * G * d, device=dev, dtype=torch.float32)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_decode_attention(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            B, H, Hk, d, Skv, SPLIT_LEN, *k_cache.stride()[:3],
+            *v_cache.stride()[:3], stream)
+    if err:
+        raise RuntimeError("decode_attention kernel launch failed: "
+                           + lib.repro_cuda_error_string(err).decode())
+    launches += 1
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    from . import _build
+    lib = _build.load("decode_attention")
+    fn = lib.repro_decode_attention
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [I] + [P] * 8 + [I] * 6 + [L] * 6 + [P]
+        fn.restype = I
+        lib.repro_cuda_error_string.argtypes = [I]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib

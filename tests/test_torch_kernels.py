@@ -1,0 +1,120 @@
+"""The port's decode attention against the JAX package: the plain PyTorch
+version vs the Pallas kernel (interpret mode) and the jnp oracle, over
+tests/test_kernels.py's decode sweep plus ragged (B,) kv_len.
+
+JAX is imported inside the helpers, so that the module also imports where
+only PyTorch is installed and the card-only case can run there."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import ops
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# On the card the kernel is held against the plain version run in fp32 on
+# the same inputs.  The kernel computes in fp32 whatever the input type, so
+# it must agree within the fp32 limit, plus, for a bf16 output, its one
+# rounding to bf16: at most half an ulp, 2**-8 of the value.
+CARD_RTOL = {"float32": 2e-5, "bfloat16": 2e-5 + 2**-8}
+
+# (B, Skv, H, Hk, d, kv_len, block_k); the ragged rows cross the CUDA
+# kernel's split boundary (SPLIT_LEN = 256 rows)
+CASES = [
+    (2, 256, 4, 2, 128, 200, 128),
+    (1, 512, 8, 1, 128, 512, 256),      # MQA, full cache
+    (3, 256, 4, 4, 128, 17, 128),       # MHA, short prefix
+    (3, 256, 4, 2, 128, [1, 100, 256], 128),
+    (4, 512, 8, 2, 64, [5, 256, 257, 511], 128),
+]
+
+
+def make_inputs(B, Skv, H, Hk, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, 1, H, d), np.float32),
+            rng.standard_normal((B, Skv, Hk, d), np.float32),
+            rng.standard_normal((B, Skv, Hk, d), np.float32))
+
+
+def jax_outputs(q, k, v, kv_len, block_k, dtype):
+    """(Pallas kernel in interpret mode, jnp oracle), as fp32 numpy."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ref
+    from repro.kernels.decode_attention import decode_attention
+    jq, jk, jv = (jnp.asarray(x).astype(getattr(jnp, dtype)) for x in (q, k, v))
+    lens = jnp.asarray(kv_len, jnp.int32)
+    out = decode_attention(jq, jk, jv, lens, block_k=block_k, interpret=True)
+    want = ref.decode_attention_reference(jq, jk, jv, lens)
+    return np.asarray(out, np.float32), np.asarray(want, np.float32)
+
+
+def to_torch(arrays, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Skv,H,Hk,d,kv_len,block_k", CASES)
+def test_plain_decode_attention_vs_jax(dtype, B, Skv, H, Hk, d, kv_len,
+                                       block_k):
+    q, k, v = make_inputs(B, Skv, H, Hk, d, seed=Skv + H)
+    kernel, oracle = jax_outputs(q, k, v, kv_len, block_k, dtype)
+    tq, tk, tv = to_torch((q, k, v), dtype)
+    lens = torch.tensor(kv_len)
+    plain = da.decode_attention_plain(tq, tk, tv, lens).float().numpy()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(plain, kernel, atol=tol, rtol=tol)
+    np.testing.assert_allclose(plain, oracle, atol=tol, rtol=tol)
+
+
+def test_ops_takes_plain_version_on_cpu():
+    q, k, v = to_torch(make_inputs(2, 256, 4, 2, 128, seed=0), "float32")
+    before = da.launches
+    out = ops.decode_attention(q, k, v, torch.tensor([3, 256]))
+    assert da.launches == before == 0
+    assert torch.equal(out, da.decode_attention_plain(
+        q, k, v, torch.tensor([3, 256])))
+
+
+@pytest.mark.parametrize("shape,dtype,kv_len,match", [
+    ((2, 256, 4, 2, 12), torch.float32, 5, "head_dim"),
+    ((2, 256, 4, 2, 264), torch.float32, 5, "head_dim"),
+    ((2, 256, 32, 2, 64), torch.float32, 5, "multiple of Hk"),
+    ((2, 256, 6, 4, 64), torch.float32, 5, "multiple of Hk"),
+    ((2, 256, 4, 2, 64), torch.float16, 5, "dtypes"),
+    ((2, 256, 4, 2, 64), torch.float32, 0, "kv_len"),
+    ((2, 256, 4, 2, 64), torch.float32, [1, 257], "kv_len"),
+    ((2, 256, 4, 2, 64), torch.float32, [1, 2, 3], "kv_len"),
+])
+def test_rejects_what_the_kernel_does_not_take(shape, dtype, kv_len, match):
+    B, Skv, H, Hk, d = shape
+    q = torch.zeros(B, 1, H, d, dtype=dtype)
+    k = torch.zeros(B, Skv, Hk, d, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        ops.decode_attention(q, k, k, torch.tensor(kv_len))
+
+
+def test_kernel_refuses_cpu_tensors():
+    q, k, v = to_torch(make_inputs(1, 256, 4, 2, 64, seed=1), "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_cuda(q, k, v, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Skv,H,Hk,d,kv_len,block_k", CASES + [
+    (8, 4096, 32, 8, 128, [1, 17, 512, 1000, 2048, 3000, 4095, 4096], 512),
+])
+def test_kernel_vs_plain_on_card(dtype, B, Skv, H, Hk, d, kv_len, block_k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (t.cuda() for t in to_torch(make_inputs(B, Skv, H, Hk, d, 2),
+                                            dtype))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    before = da.launches
+    out = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1
+    want = da.decode_attention_plain(q.float(), k.float(), v.float(), lens)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=CARD_RTOL[dtype])

@@ -1,0 +1,97 @@
+"""The port stands alone: no module of `repro_torch`, and not chip_smoke.py,
+imports `jax` or `repro`; every module imports without them; and the entry
+points refuse to run on the CPU unless asked to."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil, repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'repro_torch.launch.serve' in names, names\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15
+
+
+def test_entry_points_refuse_cpu_without_asking():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import run
+    from repro_torch.models import init_cache
+    from repro_torch.models.convert import params_from_jax
+    cfg = get_config("mistral-nemo-12b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run("mistral-nemo-12b", requests=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax({"blocks": [{}]}, cfg)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unported_architectures_raise():
+    from repro_torch.configs import get_config
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        get_config("gemma-7b", smoke=True)
+    with pytest.raises(ValueError, match="unknown"):
+        get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_card_or_repo(alone, tmp_path):
+    if torch.cuda.is_available() and not alone:
+        pytest.skip("this machine has a CUDA card")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,110 @@
+"""The port's serving front end against the JAX package: the continuous-
+batching engine with carried weights, the multiplexer, and the online
+serve entry point (all on the CPU)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.core.multiplexer import Multiplexer as JaxMultiplexer
+from repro.core.multiplexer import MuxConfig as JaxMuxConfig
+from repro.launch.serve import run as jax_run
+from repro.models import init_params as jax_init_params
+from repro.serving.engine import EngineConfig as JaxEngineConfig
+from repro.serving.engine import ServeRequest as JaxServeRequest
+from repro.serving.engine import ServingEngine as JaxServingEngine
+from repro_torch.configs import get_config
+from repro_torch.core.multiplexer import Multiplexer, MuxConfig
+from repro_torch.launch import serve
+from repro_torch.models import init_params
+from repro_torch.models.convert import params_from_jax
+from repro_torch.serving.engine import EngineConfig, ServeRequest, ServingEngine
+
+ARCH = "mistral-nemo-12b"
+
+
+def ragged_requests(make, vocab, seed=1, n=6):
+    """tests/test_serving_engine.py's ragged batch."""
+    rng = np.random.default_rng(seed)
+    return [make(i, rng.integers(0, vocab, int(rng.integers(2, 9))).astype(np.int32),
+                 max_new_tokens=int(rng.integers(2, 6)))
+            for i in range(n)]
+
+
+def test_engine_greedy_tokens_match_jax():
+    jcfg = dataclasses.replace(jax_get_config(ARCH, smoke=True),
+                               dtype=jnp.float32)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = get_config(ARCH, smoke=True, dtype=torch.float32)
+    model = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                            device="cpu")
+
+    jreqs = ragged_requests(JaxServeRequest, cfg.vocab_size)
+    jeng = JaxServingEngine(jcfg, jparams,
+                            JaxEngineConfig(num_slots=3, kv_capacity=64))
+    reqs = ragged_requests(ServeRequest, cfg.vocab_size)
+    eng = ServingEngine(cfg, model, EngineConfig(num_slots=3, kv_capacity=64))
+    for e, rs in ((jeng, jreqs), (eng, reqs)):
+        for r in rs:
+            e.submit(r)
+        e.drain()
+    assert eng.steps == jeng.steps
+    assert [r.output for r in reqs] == [r.output for r in jreqs]
+    assert all(len(r.output) == r.max_new_tokens for r in reqs)
+
+
+def test_engine_rejects_request_beyond_capacity():
+    cfg = get_config(ARCH, smoke=True, dtype=torch.float32)
+    eng = ServingEngine(cfg, init_params(torch.Generator().manual_seed(0), cfg),
+                        EngineConfig(num_slots=1, kv_capacity=8))
+    with pytest.raises(ValueError, match="kv_capacity"):
+        eng.submit(ServeRequest(0, np.arange(4, dtype=np.int32), 4))
+
+
+def _mux_stats(mux_cls, cfg_cls, case):
+    holder = {}
+
+    def online_fn(bs):                  # slowed by the offline duty
+        return 0.010 * (1.0 + 0.5 * holder["m"].throttle.duty)
+
+    kw = dict(slo_slowdown=1.2)
+    if case == "evict":
+        online_fn = lambda bs: 0.05    # noqa: E731
+        kw["evict_after_violations"] = 10
+    m = mux_cls(online_fn, lambda: 0.020, 0.010, 0.020, cfg_cls(**kw))
+    holder["m"] = m
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(1 / 40, 300)).tolist()
+    if case == "idle":
+        return dataclasses.asdict(m.run([], 5.0, max_offline_steps=10))
+    return dataclasses.asdict(m.run(arrivals, 10.0))
+
+
+@pytest.mark.parametrize("case", ["load", "idle", "evict"])
+def test_multiplexer_matches_jax_package(case):
+    assert (_mux_stats(Multiplexer, MuxConfig, case)
+            == _mux_stats(JaxMultiplexer, JaxMuxConfig, case))
+
+
+def test_serve_run_returns_reference_keys():
+    out = serve.run(ARCH, smoke=True, device="cpu", requests=20)
+    ref = jax_run(ARCH, smoke=True, requests=20)
+    assert set(out) == set(ref) | {"decode_steps"}
+    assert out["served"] == ref["served"] == 20
+    assert out["offline_steps"] == ref["offline_steps"] == 0
+    assert out["decode_steps"] >= 6 and out["base_ms"] > 0
+
+
+def test_serve_cli_on_cpu(capsys):
+    serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                "--requests", "5"])
+    assert "[serve]" in capsys.readouterr().out
+
+
+def test_serve_share_needs_the_train_slice():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.run(ARCH, smoke=True, device="cpu", share=True)
