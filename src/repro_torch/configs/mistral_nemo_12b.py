@@ -13,5 +13,5 @@ FULL = ModelConfig(
 
 SMOKE = dataclasses.replace(
     FULL, num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
-    d_ff=128, vocab_size=256, vocab_pad_multiple=16,
+    d_ff=128, vocab_size=256, vocab_pad_multiple=16, ssm_chunk=8,
 )

@@ -23,6 +23,7 @@ ARCH_IDS = [
 
 PORTED = {
     "mistral-nemo-12b": "mistral_nemo_12b",
+    "xlstm-350m": "xlstm_350m",
 }
 
 

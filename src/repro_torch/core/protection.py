@@ -7,6 +7,8 @@ same behaviour.
   * A PID controller turning the GPU-load error into the offline duty
     fraction, gated by the kernel-launch throttle.
   * A memory-quota ledger for offline allocations.
+  * A manually advanced clock and the GPU-monitor sample the SysMonitor
+    reads (for the pair-profiling harness).
 """
 from __future__ import annotations
 
@@ -31,6 +33,32 @@ class WallClock:
     @staticmethod
     def time() -> float:
         return time.time()
+
+
+class VirtualClock:
+    """Deterministic, manually advanced clock."""
+
+    def __init__(self, start: float = 0.0):
+        self._t = float(start)
+
+    def time(self) -> float:
+        return self._t
+
+    def advance(self, dt: float) -> float:
+        self._t += float(dt)
+        return self._t
+
+
+@dataclasses.dataclass
+class DeviceTelemetry:
+    """One GPU-monitor sample (collection interval is milliseconds-level)."""
+    ts: float
+    gpu_util: float
+    sm_activity: float
+    sm_clock: float
+    mem_used_frac: float
+    power_w: float = 70.0
+    temp_c: float = 60.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,7 +10,11 @@ The input is the JAX tree with every leaf turned into a numpy array
 
 `blocks[0]` is stacked over the leading `repeats` dimension (one pattern
 position); it is unstacked into per-layer tensors.  Weights keep JAX's
-(in, out) layout, so the port computes `x @ w` as `repro` does.
+(in, out) layout, so the port computes `x @ w` as `repro` does.  Both ported
+patterns carry across: the dense block (`norm1`, `attn`, `norm2`, `ffn`) and
+the mLSTM block (`norm1`, `mixer`).
+
+`mlp_from_jax` carries the speed predictor's MLP, a list of {"w", "b"}.
 """
 from __future__ import annotations
 
@@ -46,8 +50,18 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
         for r in range(cfg.repeats):
             flat[f"blocks.{r}.{name}"] = stacked[r]
     model = Transformer(cfg, device)
-    # via fp32: numpy has no bf16, and the cast to cfg.dtype is then exact
-    state = {k: torch.from_numpy(np.array(v, np.float32)).to(cfg.dtype)
+    # via fp32: numpy has no bf16, and the cast to each parameter's type
+    # (cfg.dtype, or fp32 for the mLSTM gates) is then exact
+    types = {k: p.dtype for k, p in model.state_dict().items()}
+    state = {k: torch.from_numpy(np.array(v, np.float32)).to(types.get(k))
              for k, v in flat.items()}
     model.load_state_dict(state, strict=True)
     return model
+
+
+def mlp_from_jax(layers: list, device=None) -> list[dict]:
+    """The predictor MLP's parameter list (numpy leaves) as fp32 tensors on
+    `device` (the CUDA card unless `device="cpu"` is passed)."""
+    device = resolve_device(device)
+    return [{k: torch.tensor(np.asarray(layer[k], np.float32), device=device)
+             for k in ("w", "b")} for layer in layers]

@@ -47,13 +47,21 @@ def test_every_module_imports_without_jax_or_repro():
         " 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "new = {'repro_torch.' + m for m in ('cli', '__main__',\n"
+        "       'kernels.flash_attention', 'kernels.ssm_scan',\n"
+        "       'core.interference', 'core.sysmonitor', 'core.predictor',\n"
+        "       'serving_plane.arrivals', 'optim.optimizer', 'data.pipeline',\n"
+        "       'models.ssm', 'configs.xlstm_350m', 'profiling.workloads',\n"
+        "       'profiling.harness', 'profiling.matrix',\n"
+        "       'profiling.calibrate')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
+        "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip()) >= 35
 
 
 def test_entry_points_refuse_cpu_without_asking():
@@ -63,17 +71,35 @@ def test_entry_points_refuse_cpu_without_asking():
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run
     from repro_torch.models import init_cache
-    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.convert import mlp_from_jax, params_from_jax
+    from repro_torch.profiling.calibrate import build_measured_predictor
+    from repro_torch.profiling.harness import (SUITES, PairProfiler,
+                                               build_speed_matrix)
+    from repro_torch.profiling.workloads import build_catalog, execute
     cfg = get_config("mistral-nemo-12b", smoke=True)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        resolve_device()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        run("mistral-nemo-12b", requests=2)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        init_cache(cfg, 1, 8)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        params_from_jax({"blocks": [{}]}, cfg)
+    refused = [
+        resolve_device,
+        lambda: run("mistral-nemo-12b", requests=2),
+        lambda: init_cache(cfg, 1, 8),
+        lambda: params_from_jax({"blocks": [{}]}, cfg),
+        lambda: params_from_jax({"blocks": [{}]},
+                                get_config("xlstm-350m", smoke=True)),
+        lambda: mlp_from_jax([]),
+        lambda: execute(build_catalog()["ssm-scan"]),
+        lambda: PairProfiler(SUITES["smoke"]),
+        lambda: build_speed_matrix("smoke"),
+        lambda: build_measured_predictor(None),
+    ]
+    for fn in refused:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
     assert resolve_device("cpu") == torch.device("cpu")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch", "profile",
+                           "--out", "unused.json"], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert not (ROOT / "unused.json").exists()
 
 
 def test_unported_architectures_raise():
