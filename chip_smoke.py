@@ -27,7 +27,10 @@ Phases, one line each (or more); any failure raises and exits non-zero:
   7. train    three momentum-SGD steps of xlstm-350m FULL in bf16 (batch 2,
               seq 512): finite losses, step time, peak memory;
   8. timing   each kernel, its plain version and the library call that
-              computes the same function (where one exists), at full width.
+              computes the same function (where one exists), at full width;
+              decode attention, whose call is about as short on the card
+              as the host's per-call Python, as device time in a CUDA graph
+              of 20 calls (its library call too).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
@@ -38,6 +41,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +71,14 @@ FLASH_SHAPES = [
     (1, 200, 300, 4, 2, 80, True, None),
     (2, 100, 100, 6, 2, 24, False, 50),
     (1, 64, 64, 2, 1, 256, True, None),
+    # the tensor-core kernel's edges: Sq 1, 63, 65, 200; Sq != Skv; a window
+    # without causal at d 24; d 256 with a window
+    (1, 1, 1, 2, 1, 128, True, None),
+    (1, 1, 77, 4, 2, 64, False, None),
+    (2, 63, 63, 4, 2, 128, True, None),
+    (1, 65, 130, 4, 1, 80, True, None),
+    (1, 200, 200, 2, 2, 256, True, 64),
+    (1, 96, 160, 4, 2, 24, False, 40),
 ]
 FLASH_MAIN = (1, 4096, 4096, 32, 8, 128, True, None)   # mistral-nemo-12b
 FLASH_DANUBE = (1, 8192, 8192, 32, 8, 80, True, 4096)  # h2o-danube-1.8b
@@ -78,7 +90,8 @@ SSM_TOL = 1e-4                                         # tests/test_kernels.py:7
 
 # (B, Skv, H, Hk, d, kv_len): tests/test_kernels.py's decode sweep, the
 # catalog's decode-serve, then the other template paths of the kernel
-# (d > 128 with G = 8; d = 24 with G = 3) and the SMOKE head width
+# (d > 128 with G = 8; d = 24 with G = 3) and the SMOKE head width; then
+# kv_len 1 and the capacity, one split and many, G 1, 3 and 8
 EXTRA_SHAPES = [
     (2, 256, 4, 2, 128, 200),
     (1, 512, 8, 1, 128, 512),
@@ -87,7 +100,13 @@ EXTRA_SHAPES = [
     (2, 300, 16, 2, 256, [7, 300]),
     (2, 100, 6, 2, 24, [1, 99]),
     (4, 64, 4, 2, 16, [1, 5, 33, 64]),
+    (2, 64, 3, 1, 128, [1, 64]),
+    (2, 4096, 8, 1, 64, [1, 4096]),
+    (1, 1000, 1, 1, 256, 999),
+    (3, 2048, 24, 8, 128, [1, 1500, 2048]),
+    (4, 1024, 64, 8, 128, [1, 129, 1000, 1024]),
 ]
+SERVE_KV_LEN = 128          # a serving-path cache: capacity 4096, 128 rows
 
 
 class PhaseFailed(RuntimeError):
@@ -139,6 +158,31 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
+    """Device ms per call of `fn`: `calls` calls captured in one CUDA graph
+    and replayed, so that the host's cost per call drops out (for a call
+    that is shorter on the card than on the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def phase_device(torch) -> str:
@@ -531,10 +575,23 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     q = torch.randn(B, 1, H, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, Skv, Hk, d, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, Skv, Hk, d, generator=gen, device=dev).to(dtype)
+    saved = da.launches
+    # a serving-path cache first: capacity Skv, SERVE_KV_LEN rows live
+    short = torch.full((B,), SERVE_KV_LEN, dtype=torch.int32, device=dev)
+    ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
+        da._library(), dev, dtype, H, Hk, d))
+    call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
+    phase("8/8 timing", kernel="decode_attention",
+          shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
+          ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
+          splits=ns, split_len=split_len)
     kv_len = Skv                                  # the full cache
     lens = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
-    saved = da.launches
-    ms = time_ms(torch, lambda: da.decode_attention_cuda(q, k, v, lens))
+    # a call is about as short on the card as the host's Python per call,
+    # so the kernel and the library call are timed in CUDA graphs (device
+    # time); events around calls one after another are printed beside
+    call = lambda: da.decode_attention_cuda(q, k, v, lens)  # noqa: E731
+    ms, events_ms = graph_ms(torch, call), time_ms(torch, call)
     plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lens))
     da.launches = saved                  # launches to time do not count
     # yardstick only, never called by the port: one SDPA call, GQA, masked
@@ -544,14 +601,15 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
     library_err = float((sdpa().transpose(1, 2).float() - da.decode_attention_plain(
         q, k, v, lens).float()).abs().max())
-    library_ms = time_ms(torch, sdpa)
+    library_ms, library_events_ms = graph_ms(torch, sdpa), time_ms(torch, sdpa)
     item = q.element_size()
     nbytes = (2 * B * kv_len * Hk * d + 2 * B * H * d) * item + 4 * B
     flops = 4 * B * H * kv_len * d
     bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
     phase("8/8 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{kv_len}",
-          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+          ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+          library_ms=library_ms, library_events_ms=library_events_ms,
           library_max_abs_err=f"{library_err:.3e}", bound_ms=bound_ms,
           bound_by=by)
     return {"name": "decode_attention", "route": "cuda",
@@ -565,8 +623,19 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
 def time_flash(torch, launches: dict, max_err: float) -> dict:
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Skv, H, Hk, d, causal, window = FLASH_MAIN
+    # which design ran, and what ptxas reported for each bf16 template
+    ptxas = {}
+    for r in _build.ptxas_report("flash_attention"):
+        if "wgmma_forward" in r["kernel"]:
+            dp_bk = "x".join(re.findall(r"ILi(\d+)ELi(\d+)E", r["kernel"])[0])
+            ptxas[f"wgmma_forward_{dp_bk}"] = (
+                f"regs:{r.get('registers')},spill_bytes:"
+                f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
+    phase("8/8 timing", kernel="flash_attention", design="wgmma",
+          bf16_tile=fa.tile_plan(d), **ptxas)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     dtype = torch.bfloat16

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface and becomes
 `build/repro_torch_kernels/lib<name>-<hash>.so` at the repository root,
 loaded with `ctypes`; the hash covers the source and the flags, so an edited
-source is rebuilt.  Nothing is compiled at import: the CPU tests import every
+source is rebuilt.  nvcc's output, with ptxas's registers, shared memory and
+spills of every kernel (`-Xptxas -v`), is kept beside it as `<same>.log`
+(`ptxas_report`).  Nothing is compiled at import: the CPU tests import every
 module, and a machine without nvcc never reaches this code.  A failed build
 raises; there is no fallback.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -64,6 +67,7 @@ def build(*names: str) -> dict[str, Path]:
         if proc.returncode:
             failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
         else:
+            todo[n].with_suffix(".log").write_text(log)
             os.replace(tmp, todo[n])      # atomic: readers never see a part
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -82,3 +86,32 @@ def load(name: str) -> ctypes.CDLL:
 def sources() -> list[str]:
     """Every kernel source under csrc/, by name."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Registers, spill bytes and shared memory of each kernel in the built
+    `csrc/<name>.cu`, as ptxas reported them: one dict per kernel with
+    `kernel` (the mangled name), `registers`, `spill_stores`, `spill_loads`
+    and `smem` (static bytes).  Empty if the build left no log."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    out, cur = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return out

@@ -2,16 +2,19 @@
 
 Port of the Pallas TPU kernel `repro/kernels/decode_attention.py`.  The
 CUDA kernel (`csrc/decode_attention.cu`, whose note gives its bound and
-design) is flash-decoding: the KV axis is cut into splits of `SPLIT_LEN`
-rows, each split reduces to a partial (max, sum, acc) per query head, and a
-second kernel merges the partials.  `decode_attention_plain` is the same
-function in plain PyTorch (`ref.decode_attention_reference` behind the
-kernel's checks); it serves CPU tensors and the tests, and is what the
-kernel is held against on the card.
+design) is flash-decoding: K/V tiles stream into shared memory through a
+three-stage cp.async ring, the KV axis is cut into `num_splits` splits, each
+split reduces to a partial (max, sum, acc) per query head, and a second
+kernel merges the partials.  `split_plan` sizes the split from the card's SM
+count and the kernel's occupancy so that the grid is at most one wave; when
+it gives one split, the first kernel writes the output and the merge is not
+launched.  `decode_attention_plain` is the same function in plain PyTorch
+(`ref.decode_attention_reference` behind the kernel's checks); it serves CPU
+tensors and the tests, and is what the kernel is held against on the card.
 
 `launches` counts the kernel's launches (one per call of
-`decode_attention_cuda`), so a run can show that its path went through the
-kernel.
+`decode_attention_cuda`, however many CUDA launches the call makes), so a
+run can show that its path went through the kernel.
 """
 from __future__ import annotations
 
@@ -21,13 +24,33 @@ import torch
 
 from .ref import decode_attention_reference
 
-SPLIT_LEN = 256     # cache rows per block of the split pass
 MAX_GROUP = 8       # query heads per KV head the kernel takes
 MAX_HEAD_DIM = 256
+MIN_SPLIT_ROWS = 128    # cache rows a split must have on average
 
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_occupancy: dict[tuple, tuple[int, int, int]] = {}
+
+
+def split_plan(B: int, Hk: int, Skv: int, tile_rows: int, sms: int,
+               blocks_per_sm: int) -> tuple[int, int]:
+    """(num_splits, split_len) for a cache of capacity Skv: the most splits
+    that keep the B*Hk*num_splits blocks within one wave of `sms` SMs with
+    `blocks_per_sm` resident each, but no more than one per MIN_SPLIT_ROWS
+    rows of the cache (so a short cache takes one split); split_len is a
+    multiple of `tile_rows`, and the splits cover [0, Skv)."""
+    if min(B, Hk, Skv, tile_rows, sms, blocks_per_sm) < 1:
+        raise ValueError("split_plan needs positive sizes")
+    per_pair = (sms * blocks_per_sm) // (B * Hk)
+    ns = max(1, min(per_pair, _cdiv(Skv, MIN_SPLIT_ROWS)))
+    split_len = _cdiv(_cdiv(Skv, ns), tile_rows) * tile_rows
+    return _cdiv(Skv, split_len), split_len
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def check_shapes(q: torch.Tensor, k_cache: torch.Tensor,
@@ -102,19 +125,22 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                              f"aligned rows; strides {t.stride()}")
     q = q.contiguous()
     lens = kv_lengths(kv_len, B, Skv, dev)
-    ns = -(-Skv // SPLIT_LEN)
-    out = torch.empty_like(q)
-    part_m = torch.empty(B * Hk * ns * G, device=dev, dtype=torch.float32)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(B * Hk * ns * G * d, device=dev, dtype=torch.float32)
     lib = _library()
+    ns, split_len = split_plan(B, Hk, Skv, *_card_plan(lib, dev, q.dtype, H,
+                                                       Hk, d))
+    out = torch.empty_like(q)
+    parts = [None] * 3          # each split's (max, sum, acc), for the merge
+    if ns > 1:
+        m = torch.empty(B * Hk * ns * G, device=dev, dtype=torch.float32)
+        parts = [m, torch.empty_like(m),
+                 torch.empty(m.numel() * d, device=dev, dtype=torch.float32)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_decode_attention(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            B, H, Hk, d, Skv, SPLIT_LEN, *k_cache.stride()[:3],
+            *(None if t is None else t.data_ptr() for t in parts), B, H, Hk,
+            d, Skv, split_len, ns, *k_cache.stride()[:3],
             *v_cache.stride()[:3], stream)
     if err:
         raise RuntimeError("decode_attention kernel launch failed: "
@@ -123,14 +149,38 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     return out
 
 
+def _card_plan(lib: ctypes.CDLL, dev: torch.device, dtype: torch.dtype,
+               H: int, Hk: int, d: int) -> tuple[int, int, int]:
+    """(tile rows, SM count, resident blocks an SM) of the kernel that
+    takes this dtype, G and d on `dev`, asked of the CUDA runtime once."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, dtype, H // Hk, d)
+    plan = _occupancy.get(key)
+    if plan is None:
+        sms, blocks, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            err = lib.repro_decode_occupancy(
+                _DTYPE_CODE[dtype], H, Hk, d, ctypes.byref(sms),
+                ctypes.byref(blocks), ctypes.byref(rows))
+        if err or blocks.value < 1:
+            raise RuntimeError(
+                "decode_attention occupancy query failed: "
+                + lib.repro_cuda_error_string(err).decode())
+        plan = _occupancy[key] = (rows.value, sms.value, blocks.value)
+    return plan
+
+
 def _library() -> ctypes.CDLL:
     from . import _build
     lib = _build.load("decode_attention")
     fn = lib.repro_decode_attention
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [I] + [P] * 8 + [I] * 6 + [L] * 6 + [P]
+        fn.argtypes = [I] + [P] * 8 + [I] * 7 + [L] * 6 + [P]
         fn.restype = I
+        occ = lib.repro_decode_occupancy
+        occ.argtypes = [I] * 4 + [ctypes.POINTER(I)] * 3
+        occ.restype = I
         lib.repro_cuda_error_string.argtypes = [I]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

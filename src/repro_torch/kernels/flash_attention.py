@@ -2,13 +2,24 @@
 masks.
 
 Port of the Pallas TPU kernel `repro/kernels/flash_attention.py`.  The CUDA
-kernel (`csrc/flash_attention.cu`, whose note gives its bound and design)
-runs one block per (64 query rows, query head, sequence), streams 64-row K/V
-tiles through shared memory with an fp32 online softmax, and skips the tiles
-that the causal or window mask hides entirely.  `flash_attention_plain` is
-the same function in plain PyTorch (`ref.attention_reference` behind the
-kernel's checks); it serves CPU tensors and the tests, and is what the kernel
-is held against on the card.
+source (`csrc/flash_attention.cu`, whose note gives the bound and the
+designs) holds two kernels, chosen by the input type:
+
+- bf16 runs on the tensor cores: one block (one warpgroup) per (64 query
+  rows, query head, sequence), K/V tiles streamed by cp.async through a
+  two-stage ring in wgmma's 128-byte-swizzled layout, S = Q·K^T and P·V by
+  `wgmma` with fp32 accumulators, the online softmax in registers, and P
+  split into two bf16 terms (hi + lo) so that P·V keeps the fp32 limit.
+  The head width is padded to the class that `tile_plan` names.
+- fp32 runs the scalar kernel of the first port (scalar fp32 FMAs over
+  64-row tiles in shared memory): the tensor cores have no fp32 product, and
+  TF32 would break the fp32 limit.  Its caller is the profiling catalog's
+  small `flash-prefill`, which launch time bounds.
+
+Both skip the K/V tiles that the causal or window mask hides entirely.
+`flash_attention_plain` is the same function in plain PyTorch
+(`ref.attention_reference` behind the kernel's checks); it serves CPU tensors
+and the tests, and is what the kernels are held against on the card.
 
 Divergences from the TPU kernel's interface: the tiling arguments
 (`block_q`, `block_k`) are gone, since tiling belongs to the kernel; Sq and
@@ -33,6 +44,20 @@ MAX_HEAD_DIM = 256
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# (padded head width, query rows, key rows) of the bf16 kernel's tile
+# classes; the CUDA source has exactly these and refuses any other
+_CLASSES = ((64, 64, 64), (128, 64, 64), (256, 64, 32))
+
+
+def tile_plan(d: int) -> tuple[int, int, int]:
+    """(padded head width, query rows, key rows) of the bf16 kernel's tile at
+    head width d: d is zero-padded in shared memory to the least class that
+    holds it."""
+    for plan in _CLASSES:
+        if d <= plan[0]:
+            return plan
+    raise ValueError(f"head_dim {d} is wider than {MAX_HEAD_DIM}")
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,10 +111,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (q, k, v):
         if t.stride(3) != 1:
             raise ValueError(f"unit stride on d needed; strides {t.stride()}")
+        # the bf16 kernel copies 16-byte chunks of each row
+        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+                t.stride(i) * t.element_size() % 16 for i in range(3))):
+            raise ValueError("bf16 rows must start on 16 bytes; strides "
+                             f"{t.stride()}")
     B, Sq, H, d = q.shape
     Skv, Hk = k.shape[1], k.shape[2]
     if B > 65535 or H > 65535:
         raise ValueError(f"B={B} and H={H} must each be at most 65535")
+    dp, _, bk = tile_plan(d)
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
@@ -99,7 +130,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), B, Sq, Skv, H, Hk, d, int(causal),
             0 if window is None else int(window), q.stride(0), q.stride(1),
             q.stride(2), k.stride(0), k.stride(1), k.stride(2), v.stride(0),
-            v.stride(1), v.stride(2), stream)
+            v.stride(1), v.stride(2), dp, bk, stream)
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
@@ -113,7 +144,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [I] + [P] * 4 + [I] * 8 + [L] * 9 + [P]
+        fn.argtypes = [I] + [P] * 4 + [I] * 8 + [L] * 9 + [I] * 2 + [P]
         fn.restype = I
         lib.repro_cuda_error_string.argtypes = [I]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -12,7 +12,9 @@ around as many unprofiled steps (`step_ms`).  `idle_share` is
 1 - device_ms / step_ms, the share of `step_ms` in which no kernel ran; it
 is not clamped, so a negative value shows that the profiled kernel rows
 overcount (overlapping kernels) or that the device time of the profiled
-steps exceeds that of the unprofiled ones.  Prints one JSON object;
+steps exceeds that of the unprofiled ones.  `decode_attention_ms_per_step`
+is the device time of the decode-attention kernels (the split pass and,
+where it runs, the merge).  Prints one JSON object;
 `--out` also writes it to a file.  Runs on the CUDA card only: a CPU run
 would say nothing about the device.
 """
@@ -64,6 +66,10 @@ def profile_decode(arch: str, *, smoke: bool, fill: int, batch: int = 8,
     kernels = sorted((r for r in rows if not r["name"].startswith("aten::")),
                      key=lambda r: -r["device_ms_per_step"])
     device_ms = sum(r["device_ms_per_step"] for r in kernels)
+    # the port's decode attention: its split pass and, when it runs, merge
+    attention_ms = sum(r["device_ms_per_step"] for r in kernels
+                       if "decode_partial" in r["name"]
+                       or "decode_combine" in r["name"])
 
     # steady state without the profiler: CUDA events around the steps
     start = torch.cuda.Event(enable_timing=True)
@@ -84,6 +90,7 @@ def profile_decode(arch: str, *, smoke: bool, fill: int, batch: int = 8,
             "step_ms_host_median_profiled": host_ms[len(host_ms) // 2],
             "device_ms_per_step": device_ms,
             "idle_share": 1 - device_ms / step_ms,
+            "decode_attention_ms_per_step": attention_ms,
             "top_kernels": kernels[:top]}
 
 

@@ -190,7 +190,11 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
     # kv_len = pos + 1 is checked against the capacity once, on the host; a
     # pos on the card is copied there first (one wait for the card), so that
     # a position past the cache raises instead of being clamped by the kernel
-    lens = kv_lengths(torch.as_tensor(pos).cpu() + 1, B, kc_all.shape[2], dev)
+    host_lens = torch.as_tensor(pos).cpu() + 1
+    lens = kv_lengths(host_lens, B, kc_all.shape[2], dev)
+    # attention reads the caches cut to the longest live sequence (a view):
+    # no row past it is visible, and the kernel sizes its split from it
+    live = int(host_lens.max())
     pos_b = lens.long() - 1                                  # (B,)
     rope = L.rope_table(pos_b[:, None], dh, cfg.rope_theta)
     rows = torch.arange(B, device=dev)
@@ -204,7 +208,7 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
         vc[rows, pos_b] = v[:, 0]
         # every Sq == 1 attention takes the decode kernel, MHA included
         # (`repro` sent MHA down its dense path: the same function)
-        o = ops.decode_attention(q, kc, vc, lens)
+        o = ops.decode_attention(q, kc[:, :live], vc[:, :live], lens)
         x = x + o.reshape(B, 1, H * dh) @ blk.attn.w_o
         h = L.rmsnorm(blk.norm2, x)
         x = x + L.ffn(blk.ffn, h)

@@ -19,7 +19,7 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 CARD_RTOL = {"float32": 2e-5, "bfloat16": 2e-5 + 2**-8}
 
 # (B, Skv, H, Hk, d, kv_len, block_k); the ragged rows cross the CUDA
-# kernel's split boundary (SPLIT_LEN = 256 rows)
+# kernel's tile and split boundaries
 CASES = [
     (2, 256, 4, 2, 128, 200, 128),
     (1, 512, 8, 1, 128, 512, 256),      # MQA, full cache
@@ -94,6 +94,41 @@ def test_rejects_what_the_kernel_does_not_take(shape, dtype, kv_len, match):
         ops.decode_attention(q, k, k, torch.tensor(kv_len))
 
 
+@pytest.mark.parametrize("B,Hk,Skv,tile,sms,occ", [
+    (1, 1, 64, 32, 132, 8),
+    (8, 8, 4096, 32, 132, 4),
+    (8, 8, 4096, 16, 132, 8),
+    (1, 8, 4096, 32, 132, 4),
+    (3, 2, 1000, 64, 132, 3),
+    (64, 8, 4096, 32, 132, 4),       # B*Hk beyond one wave: one split
+    (2, 1, 4095, 8, 16, 2),
+    (4, 2, 129, 32, 132, 4),
+])
+def test_split_plan_covers_the_cache_in_one_wave(B, Hk, Skv, tile, sms, occ):
+    ns, split_len = da.split_plan(B, Hk, Skv, tile, sms, occ)
+    assert split_len % tile == 0 and split_len >= tile
+    assert (ns - 1) * split_len < Skv <= ns * split_len    # [0, Skv) exactly
+    if B * Hk <= sms * occ:
+        assert B * Hk * ns <= sms * occ
+    else:
+        assert ns == 1
+    assert ns <= -(-Skv // da.MIN_SPLIT_ROWS)
+
+
+def test_split_plan_sensible_plans():
+    # the main path's decode at full width: 8 splits of 512 rows fill one
+    # wave of 4 blocks on each of 132 SMs (512 of 528 places)
+    assert da.split_plan(8, 8, 4096, 32, 132, 4) == (8, 512)
+    # a lone short sequence and a short capacity take one split
+    assert da.split_plan(1, 1, 64, 32, 132, 4) == (1, 64)
+    assert da.split_plan(8, 8, 118, 32, 132, 4) == (1, 128)
+    assert da.split_plan(8, 8, da.MIN_SPLIT_ROWS, 32, 132, 4)[0] == 1
+    # few sequences and a long cache: many splits, still one wave
+    assert da.split_plan(1, 1, 4096, 32, 132, 4) == (32, 128)
+    with pytest.raises(ValueError):
+        da.split_plan(0, 8, 4096, 32, 132, 4)
+
+
 def test_kernel_refuses_cpu_tensors():
     q, k, v = to_torch(make_inputs(1, 256, 4, 2, 64, seed=1), "float32")
     with pytest.raises(ValueError, match="CUDA"):
@@ -104,6 +139,12 @@ def test_kernel_refuses_cpu_tensors():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Skv,H,Hk,d,kv_len,block_k", CASES + [
     (8, 4096, 32, 8, 128, [1, 17, 512, 1000, 2048, 3000, 4095, 4096], 512),
+    # kv_len 1 and the capacity, one split and many, G 1, 3 and 8
+    (2, 64, 3, 1, 128, [1, 64], 64),
+    (2, 4096, 8, 1, 64, [1, 4096], 512),
+    (1, 1000, 1, 1, 256, 999, 128),
+    (3, 2048, 24, 8, 128, [1, 1500, 2048], 512),
+    (4, 1024, 64, 8, 128, [1, 129, 1000, 1024], 256),
 ])
 def test_kernel_vs_plain_on_card(dtype, B, Skv, H, Hk, d, kv_len, block_k):
     if not torch.cuda.is_available():
@@ -115,6 +156,30 @@ def test_kernel_vs_plain_on_card(dtype, B, Skv, H, Hk, d, kv_len, block_k):
     out = ops.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
     assert da.launches == before + 1
+    want = da.decode_attention_plain(q.float(), k.float(), v.float(), lens)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=CARD_RTOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Skv,Hk,many", [(2, 64, 2, False),
+                                          (1, 4096, 1, True)])
+def test_kernel_one_split_and_many_on_card(dtype, B, Skv, Hk, many):
+    """A short capacity takes one split (one launch, no merge); a long one
+    with few sequences takes many.  Both against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    H, d = 4 * Hk, 128
+    q, k, v = (t.cuda() for t in to_torch(make_inputs(B, Skv, H, Hk, d, 3),
+                                            dtype))
+    lib = da._library()
+    ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
+        lib, q.device, q.dtype, H, Hk, d))
+    assert (ns > 1) == many and ns * split_len >= Skv
+    lens = torch.tensor([Skv] * B, dtype=torch.int32, device="cuda")
+    out = da.decode_attention_cuda(q, k, v, lens)
+    torch.cuda.synchronize()
     want = da.decode_attention_plain(q.float(), k.float(), v.float(), lens)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
                                atol=2e-5, rtol=CARD_RTOL[dtype])

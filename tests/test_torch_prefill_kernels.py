@@ -7,12 +7,15 @@ The Pallas flash kernel does not trace on the installed jax (it calls
 `pl.load`), so `repro.kernels.ref.attention_reference` stands in for it.
 JAX is imported inside the helpers, so that the module also imports where
 only PyTorch is installed and the card-only cases can run there."""
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as ss
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # tests/test_kernels.py:12
@@ -139,6 +142,49 @@ def test_flash_window_edge_is_accepted():
     assert bool(torch.isfinite(out).all())
 
 
+def test_split_p_meets_the_card_rule_and_one_rounding_does_not():
+    """Why the tensor-core flash kernel splits P into two bf16 terms.  Its
+    P.V emulated in fp32 (exact row max and sum; P V accumulated in fp32
+    from bf16 operands), causal S 256, d 64, two heads of bf16 inputs: with
+    P = P_hi + P_lo the bf16 output meets the card's rule against the fp32
+    oracle (atol 2e-5, rtol 2e-5 + 2**-8); with P rounded once to bf16 it
+    misses the rule some 30-fold."""
+    S, d, H = 256, 64, 2
+    q, k, v = (t.bfloat16() for t in to_torch(flash_inputs(1, S, S, H, H, d,
+                                                           seed=11)))
+    want = ref.attention_reference(q.float(), k.float(), v.float(),
+                                   causal=True)
+    limit = 2e-5 + (2e-5 + 2**-8) * want.abs()
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = (qf @ kf.transpose(-1, -2)) / math.sqrt(d)
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+
+    def worst(pv):             # error over the limit, after the bf16 output
+        out = (pv / l).transpose(1, 2).bfloat16().float()
+        return float(((out - want).abs() / limit).max())
+
+    assert worst(hi @ vf + lo @ vf) <= 1.0
+    assert worst(hi @ vf) > 10.0
+
+
+def test_tile_plan_covers_every_head_width():
+    """Every head width the wrapper takes maps to a bf16 class that holds it,
+    the least such class, with the tile sizes the CUDA source has."""
+    for d in range(8, fa.MAX_HEAD_DIM + 1, 8):
+        plan = fa.tile_plan(d)
+        dp, bq, bk = plan
+        assert plan in fa._CLASSES and bq % 64 == 0 and bk % 16 == 0
+        assert d <= dp and all(c < d for c, _, _ in fa._CLASSES if c < dp)
+    assert [fa.tile_plan(d)[0] for d in (24, 64, 80, 128, 136, 256)] == \
+        [64, 64, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.tile_plan(264)
+
+
 @pytest.mark.parametrize("dims,match", [
     (dict(N=3), "state dim"),
     (dict(N=64), "state dim"),
@@ -172,6 +218,14 @@ def test_kernels_refuse_cpu_tensors():
     (1, 200, 300, 4, 2, 80, True, None),        # ragged tiles, d 80
     (2, 100, 100, 6, 2, 24, False, 50),         # window without causal
     (1, 64, 64, 2, 1, 256, True, None),         # d 256
+    # the tensor-core kernel's edges: Sq 1, 63, 65, 200; Sq != Skv; a
+    # window without causal at d 24; d 256 with a window
+    (1, 1, 1, 2, 1, 128, True, None),
+    (1, 1, 77, 4, 2, 64, False, None),
+    (2, 63, 63, 4, 2, 128, True, None),
+    (1, 65, 130, 4, 1, 80, True, None),
+    (1, 200, 200, 2, 2, 256, True, 64),
+    (1, 96, 160, 4, 2, 24, False, 40),
 ])
 def test_flash_kernel_vs_plain_on_card(dtype, B, Sq, Skv, H, Hk, d, causal,
                                        window):
@@ -185,6 +239,30 @@ def test_flash_kernel_vs_plain_on_card(dtype, B, Sq, Skv, H, Hk, d, causal,
     assert fa.launches == before + 1
     want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
                                     causal=causal, window=window)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=CARD_RTOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_reads_strided_views_on_card(dtype):
+    """K and V as the first Hk heads of a cache with room for 2*Hk, q as a
+    slice of a wider projection: the kernel follows the strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, Sq, Skv, H, Hk, d = 2, 130, 200, 4, 2, 80
+    rng = np.random.default_rng(7)
+    big_q = torch.from_numpy(rng.standard_normal((B, Sq, 2 * H, d),
+                                                 np.float32))
+    big = torch.from_numpy(rng.standard_normal((2, B, Skv, 2 * Hk, d),
+                                               np.float32))
+    big_q, big = (t.to(getattr(torch, dtype)).cuda() for t in (big_q, big))
+    q, k, v = big_q[:, :, H:], big[0][:, :, :Hk], big[1][:, :, Hk:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    out = ops.flash_attention(q, k, v, causal=True, window=96)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=True, window=96)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
                                atol=2e-5, rtol=CARD_RTOL[dtype])
 
