@@ -30,7 +30,10 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               computes the same function (where one exists), at full width;
               decode attention, whose call is about as short on the card
               as the host's per-call Python, as device time in a CUDA graph
-              of 20 calls (its library call too).
+              of 20 calls (its library call too); the scan with events and
+              in a CUDA graph, the SM clock read after its timed loop, the
+              lanes a channel `lane_plan` chose, ptxas's registers and
+              spills for each template, and one line for each L it takes.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
@@ -312,39 +315,63 @@ def check_flash(torch) -> float:
     return errs[(FLASH_MAIN, "bfloat16")]
 
 
-def ssm_args(torch, gen, B: int, S: int, di: int, N: int) -> tuple:
+def ssm_args(torch, gen, B: int, S: int, di: int, N: int,
+             a_log: str = "shared") -> tuple:
     """The catalog's input recipe: dt = softplus(normal), x, B, C normal,
-    A = -(1..N) for every channel."""
+    A = -(1..N) for every channel.  With a_log="per_channel", A_log =
+    log(uniform(0.5, 16)) for each (channel, state), as a trained Mamba
+    layer's A differs per channel."""
     import torch.nn.functional as F
     dev = gen.device
     dt = F.softplus(torch.randn(B, S, di, generator=gen, device=dev))
     x = torch.randn(B, S, di, generator=gen, device=dev)
     Bc = torch.randn(B, S, N, generator=gen, device=dev)
     Cc = torch.randn(B, S, N, generator=gen, device=dev)
-    A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
-                                   device=dev).expand(di, N).contiguous())
+    if a_log == "per_channel":
+        A_log = torch.empty(di, N, device=dev).uniform_(
+            0.5, 16.0, generator=gen).log_()
+    else:
+        A_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                       device=dev).expand(di, N).contiguous())
     return dt, x, Bc, Cc, A_log
 
 
 def check_ssm(torch) -> float:
     """The scan kernel against the plain version (both fp32) within the
-    reference's 1e-4 (atol and rtol).  Returns the error at SSM_MAIN."""
+    reference's 1e-4 (atol and rtol), with the catalog's A shared by every
+    channel and with an A_log drawn per channel; at each shape with every
+    L (lanes a channel) the kernel takes, `lane_plan`'s among them.
+    Returns the error at SSM_MAIN with the shared A (the worst over L)."""
     from repro_torch.kernels import ssm_scan as ss
     gen = torch.Generator(device="cuda").manual_seed(3)
-    errs = []
-    for shape in SSM_SHAPES + [SSM_MAIN]:
-        args = ssm_args(torch, gen, *shape)
-        out = ss.ssm_scan_cuda(*args)
-        torch.cuda.synchronize()
-        errs.append(compare(torch, out, ss.ssm_scan_plain(*args), SSM_TOL,
-                            SSM_TOL))
-        del args, out
+    errs, runs = {}, 0
+    for a_log in ("shared", "per_channel"):
+        for shape in SSM_SHAPES + [SSM_MAIN]:
+            args = ssm_args(torch, gen, *shape, a_log=a_log)
+            want = ss.ssm_scan_plain(*args)
+            err = 0.0
+            for lanes in sorted(L for L in ss.LANES if L <= shape[3]):
+                out = ss.ssm_scan_cuda(*args, lanes=lanes)
+                torch.cuda.synchronize()
+                err = max(err, compare(torch, out, want, SSM_TOL, SSM_TOL))
+                runs += 1
+                del out
+            errs[(shape, a_log)] = err
+            del args, want
     torch.cuda.empty_cache()
-    phase("3/8 kernels", kernel="ssm_scan", cases=len(errs),
-          max_abs_err_sweep=f"{max(errs[:-1]):.3e}",
-          max_abs_err_jamba_S4096_di16384_N16=f"{errs[-1]:.3e}",
+    sweep = {a: max(e for (s, k), e in errs.items()
+                    if k == a and s != SSM_MAIN)
+             for a in ("shared", "per_channel")}
+    phase("3/8 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+          lanes="1,2,4",
+          max_abs_err_sweep=f"{sweep['shared']:.3e}",
+          max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
+          max_abs_err_jamba_S4096_di16384_N16=
+          f"{errs[(SSM_MAIN, 'shared')]:.3e}",
+          max_abs_err_jamba_per_channel_A=
+          f"{errs[(SSM_MAIN, 'per_channel')]:.3e}",
           tol="atol:1e-4,rtol:1e-4", against="plain_fp32")
-    return errs[-1]
+    return errs[(SSM_MAIN, "shared")]
 
 
 def phase_parity(torch) -> None:
@@ -674,13 +701,46 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             "bound_by": by, "library_ms": library_ms}
 
 
+def sm_clock() -> str:
+    """The SM clock and its maximum, as nvidia-smi reads them now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader", "-i", "0"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().replace(", ", "/")
+
+
 def time_ssm(torch, launches: dict, max_err: float) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels import ssm_scan as ss
     B, S, di, N = SSM_MAIN
+    # what ptxas reported for each (N, L) template
+    ptxas = {}
+    for r in _build.ptxas_report("ssm_scan"):
+        n, lanes = re.findall(r"ILi(\d+)ELi(\d+)E", r["kernel"])[0]
+        ptxas[f"N{n}_L{lanes}"] = (
+            f"regs:{r.get('registers')},spill_bytes:"
+            f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
+    phase("8/8 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
+    shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
     saved = ss.launches
-    ms = time_ms(torch, lambda: ss.ssm_scan_cuda(*args))
+    # the sweep over the lanes a channel, each timed with events (then the
+    # SM clock) and as device time in a CUDA graph
+    for lanes in sorted(L for L in ss.LANES if L <= N):
+        call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
+        events_ms = time_ms(torch, call)
+        clock = sm_clock()
+        phase("8/8 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+              ms=events_ms, sm_clock_mhz=clock,
+              graph_ms=graph_ms(torch, call))
+    plan = ss.lane_plan(B, di, N,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+    call = lambda: ss.ssm_scan_cuda(*args)  # noqa: E731
+    ms = time_ms(torch, call)
+    clock = sm_clock()
+    device_ms = graph_ms(torch, call)
     plain_ms = time_ms(torch, lambda: ss.ssm_scan_plain(*args), iters=2,
                        warmup=1)
     ss.launches = saved
@@ -690,9 +750,12 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("8/8 timing", kernel="ssm_scan",
-          shape=f"B{B}_S{S}_di{di}_N{N}_fp32", ms=ms, plain_ms=plain_ms,
-          library_ms=None, bound_ms=bound_ms, bound_by=by,
+    phase("8/8 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+          channels_per_block=plan.channels, blocks=plan.blocks,
+          busiest_sm_channels=plan.busiest,
+          mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
+          sm_clock_mhz=clock, plain_ms=plain_ms, library_ms=None,
+          bound_ms=bound_ms, bound_by=by,
           bytes_ms=nbytes / PEAK_BYTES_S * 1e3,
           exp_ms=exps / PEAK_EXP_S * 1e3,
           fp32_ms=flops / PEAK_FLOPS["float32"] * 1e3)

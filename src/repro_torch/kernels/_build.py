@@ -83,6 +83,25 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def build_file(source: Path) -> Path:
+    """A library of any CUDA source with the port's flags (for measurement
+    tools), in a subdirectory of the build directory keyed by a hash of
+    the source and the flags.  Raises with nvcc's output if it fails."""
+    src = source.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / "tools" / f"{source.stem}-{digest[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
 def sources() -> list[str]:
     """Every kernel source under csrc/, by name."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))

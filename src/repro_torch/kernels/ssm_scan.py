@@ -3,9 +3,11 @@
 
 Port of the Pallas TPU kernel `repro/kernels/ssm_scan.py`.  The CUDA kernel
 (`csrc/ssm_scan.cu`, whose note gives its bound and design) gives each
-(channel, state) pair one warp lane that walks the whole sequence with its
-state in a register; N lanes sum y_t with shuffles.  `ssm_scan_plain` is the
-same function in plain PyTorch (`ref.ssm_scan_reference` behind the kernel's
+channel L lanes (L in 1, 2, 4), each holding N/L of its states in registers
+for the whole sequence; the states' factors are exp2 of a pre-scaled A, and
+dt, x, B and C stream into shared memory through a cp.async ring.
+`lane_plan` picks L from the card's SM count.  `ssm_scan_plain` is the same
+function in plain PyTorch (`ref.ssm_scan_reference` behind the kernel's
 checks); it serves CPU tensors and the tests, and is what the kernel is held
 against on the card.
 
@@ -19,14 +21,56 @@ be a multiple of it.  The kernel takes N a power of two up to 32.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .ref import ssm_scan_reference
 
 STATE_DIMS = (1, 2, 4, 8, 16, 32)
+THREADS = 128           # a block of the kernel: one warp a sub-partition
+LANES = (2, 1, 4)       # lanes a channel the kernel takes, in order of
+                        # preference where two plans balance alike
+MAX_BLOCKS = 2**31 - 1  # the grid is one dimension
 
 launches = 0
+
+
+class LanePlan(NamedTuple):
+    lanes: int          # L: threads a channel, each holding N / L states
+    channels: int       # channels a block, THREADS // lanes
+    blocks: int         # the grid: B * ceil(di / channels)
+    busiest: int        # channels (padding included) on the busiest SM
+    mean: float         # B * di / sms
+
+
+def lane_plan(B: int, di: int, N: int, sms: int) -> LanePlan:
+    """The kernel's lanes a channel for B * di channels of N states on a
+    card of `sms` SMs.  Every channel costs the same (N exponentials and
+    12 bytes a step), so the time is that of the SM that holds the most
+    channels: ceil(blocks / sms) blocks of `channels` each.  Of the L in
+    LANES that divide N, the plan takes the one whose busiest SM holds the
+    fewest channels, the first in LANES on a tie: L = 2 (two warps a
+    sub-partition hide each other's waits for one shuffle a step), then
+    1, then 4 (the order of their times at jamba's width on the H100;
+    PERF.md)."""
+    if min(B, di, sms) < 1 or N not in STATE_DIMS:
+        raise ValueError(f"lane_plan needs positive sizes and N in "
+                         f"{STATE_DIMS}: B={B} di={di} N={N} sms={sms}")
+    best = None
+    for L in LANES:
+        if L > N:
+            continue
+        C = THREADS // L
+        blocks = B * -(-di // C)
+        plan = LanePlan(L, C, blocks, -(-blocks // sms) * C, B * di / sms)
+        if blocks <= MAX_BLOCKS and (best is None
+                                     or plan.busiest < best.busiest):
+            best = plan
+    if best is None:
+        raise ValueError(f"B*di = {B * di} channels need more than "
+                         f"{MAX_BLOCKS} blocks")
+    return best
 
 
 def check_args(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
@@ -62,10 +106,12 @@ def ssm_scan_plain(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
 
 
 def ssm_scan_cuda(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
-                  C_ssm: torch.Tensor, A_log: torch.Tensor) -> torch.Tensor:
+                  C_ssm: torch.Tensor, A_log: torch.Tensor, *,
+                  lanes: int | None = None) -> torch.Tensor:
     """Launch the CUDA kernel; returns fp32 y (B,S,di).  Inputs are cast to
-    contiguous fp32 (no copy when they already are).  Raises on anything the
-    kernel does not take, or if the launch fails."""
+    contiguous fp32 (no copy when they already are).  `lanes` overrides
+    `lane_plan`'s L (for measurements).  Raises on anything the kernel does
+    not take, or if the launch fails."""
     global launches
     check_args(dt, x, B_ssm, C_ssm, A_log)
     dev = x.device
@@ -74,8 +120,12 @@ def ssm_scan_cuda(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
         raise ValueError("ssm_scan_cuda needs all tensors on one CUDA device")
     Bsz, S, di = x.shape
     N = B_ssm.shape[2]
-    if Bsz > 65535:
-        raise ValueError(f"batch {Bsz} must be at most 65535")
+    if lanes is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        lanes = lane_plan(Bsz, di, N, sms).lanes
+    elif lanes not in LANES or lanes > N:
+        raise ValueError(f"lanes={lanes} must be one of {LANES}, "
+                         f"at most N={N}")
     dt, x, B_ssm, C_ssm, A_log = (t.float().contiguous()
                                   for t in (dt, x, B_ssm, C_ssm, A_log))
     y = torch.empty((Bsz, S, di), dtype=torch.float32, device=dev)
@@ -84,7 +134,7 @@ def ssm_scan_cuda(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_ssm_scan(dt.data_ptr(), x.data_ptr(), B_ssm.data_ptr(),
                                  C_ssm.data_ptr(), A_log.data_ptr(),
-                                 y.data_ptr(), Bsz, S, di, N, stream)
+                                 y.data_ptr(), Bsz, S, di, N, lanes, stream)
     if err:
         raise RuntimeError("ssm_scan kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
@@ -98,7 +148,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.repro_ssm_scan
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 6 + [I] * 4 + [P]
+        fn.argtypes = [P] * 6 + [I] * 5 + [P]
         fn.restype = I
         lib.repro_cuda_error_string.argtypes = [I]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p

@@ -48,15 +48,29 @@ def flash_inputs(B, Sq, Skv, H, Hk, d, seed):
             rng.standard_normal((B, Skv, Hk, d), np.float32))
 
 
-def ssm_inputs(B, S, di, N, seed):
+def ssm_inputs(B, S, di, N, seed, a_log="shared"):
+    """The catalog's recipe: A = -(1..N), the same row for every channel.
+    With a_log="per_channel", A_log = log(uniform(0.5, 16)) for each
+    (channel, state), drawn after the rest, so that a kernel that reads
+    A_log[n] for A_log[c, n], or a neighbour's row, disagrees."""
     rng = np.random.default_rng(seed)
     dt = np.log1p(np.exp(rng.standard_normal((B, S, di)))).astype(np.float32)
     x = rng.standard_normal((B, S, di), np.float32)
     Bc = rng.standard_normal((B, S, N), np.float32)
     Cc = rng.standard_normal((B, S, N), np.float32)
-    A_log = np.log(np.broadcast_to(np.arange(1, N + 1, dtype=np.float32),
-                                   (di, N))).copy()
+    if a_log == "per_channel":
+        A_log = np.log(rng.uniform(0.5, 16.0, (di, N))).astype(np.float32)
+    else:
+        A_log = np.log(np.broadcast_to(np.arange(1, N + 1, dtype=np.float32),
+                                       (di, N))).copy()
     return dt, x, Bc, Cc, A_log
+
+
+def ssm_params(cases):
+    """pytest params of (B, S, di, N, chunk, a_log) cases: the shared-A
+    cases keep pytest's own ids, the others end in their A_log kind."""
+    return [pytest.param(*c, id="-".join(map(str, c[:5])) + (
+        "" if c[5] == "shared" else f"-{c[5]}")) for c in cases]
 
 
 def to_torch(arrays, dtype="float32"):
@@ -81,13 +95,15 @@ def test_plain_flash_attention_vs_jax(dtype, B, Sq, Skv, H, Hk, d, causal,
                                rtol=TOL[dtype])
 
 
-@pytest.mark.parametrize("B,S,di,N,chunk", SSM_CASES)
-def test_plain_ssm_scan_vs_jax(B, S, di, N, chunk):
+@pytest.mark.parametrize("B,S,di,N,chunk,a_log", ssm_params(
+    [(*c, "shared") for c in SSM_CASES]
+    + [(*c, "per_channel") for c in SSM_CASES]))
+def test_plain_ssm_scan_vs_jax(B, S, di, N, chunk, a_log):
     import jax.numpy as jnp
 
     from repro.kernels import ref
     from repro.kernels.ssm_scan import ssm_scan
-    arrays = ssm_inputs(B, S, di, N, seed=S + di)
+    arrays = ssm_inputs(B, S, di, N, seed=S + di, a_log=a_log)
     j = [jnp.asarray(a) for a in arrays]
     kernel = np.asarray(ssm_scan(*j, chunk=chunk, interpret=True))
     oracle = np.asarray(ref.ssm_scan_reference(*j))
@@ -267,15 +283,25 @@ def test_flash_kernel_reads_strided_views_on_card(dtype):
                                atol=2e-5, rtol=CARD_RTOL[dtype])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,S,di,N,chunk", SSM_CASES + [
+SSM_CARD_CASES = SSM_CASES + [
     (2, 64, 128, 8, 16),                        # the catalog's ssm-scan
     (1, 100, 70, 4, 1),                         # ragged steps and channels
-])
-def test_ssm_kernel_vs_plain_on_card(B, S, di, N, chunk):
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,chunk,a_log", ssm_params(
+    [(*c, "shared") for c in SSM_CARD_CASES]
+    + [(*c, "per_channel") for c in SSM_CARD_CASES + [
+        (1, 33, 36, 1, 1),                      # N 1 and 2, channels not
+        (3, 17, 44, 2, 1),                      # a multiple of a block
+        (1, 70, 130, 32, 1),                    # N 32
+    ]]))
+def test_ssm_kernel_vs_plain_on_card(B, S, di, N, chunk, a_log):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    arrays = [t.cuda() for t in to_torch(ssm_inputs(B, S, di, N, seed=2))]
+    arrays = [t.cuda() for t in to_torch(ssm_inputs(B, S, di, N, seed=2,
+                                                    a_log=a_log))]
     before = ss.launches
     out = ops.ssm_scan(*arrays)
     torch.cuda.synchronize()
