@@ -10,23 +10,36 @@ Phases, one line each (or more); any failure raises and exits non-zero:
   3. kernels  each kernel against its plain PyTorch version run in fp32 on
               the same inputs, on the card: the test sweeps, the profiling
               catalog's shapes and full width (decode: mistral-nemo-12b at
-              B8/Skv4096; flash: mistral-nemo-12b prefill at S4096 and
+              B8/Skv4096 and h2o-danube-1.8b's d 80, G 4 at B8/Skv4096 and
+              at short caches; flash: mistral-nemo-12b prefill at S4096 and
               h2o-danube-1.8b's window at S8192; ssm: jamba-1.5-large's
               Mamba layer, di 16384, N 16, S4096);
-  4. parity   mistral-nemo-12b SMOKE in fp32: the model on the card (through
-              the kernel) against the same weights on the CPU (plain path):
-              decode logits, then the serving engine's greedy tokens;
+  4. parity   SMOKE configs in fp32, the model on the card (through the
+              kernel) against the same weights on the CPU (plain path):
+              mistral-nemo-12b's decode logits and the serving engine's
+              greedy tokens; then h2o-danube-1.8b's ring cache (window 16):
+              40 decode steps at one position and 40 at ragged per-row
+              positions, both past the window, and the engine's tokens;
   5. serve    mistral-nemo-12b FULL in bf16: `launch.serve.run` at batch 8,
               kv_cap 4096, then a ServingEngine with 8 slots answering ragged
               requests; the kernel's launch count must be 40 per decode step;
-  6. profile  MuxFlow's measurement loop on the card: the smoke suite's speed
+  6. share    h2o-danube-1.8b FULL in bf16: `launch.serve.run` at batch 8,
+              kv_cap 4096 (the ring), alone and then with `share=True`
+              (AdamW train steps of a second copy packed in by the
+              multiplexer); 24 launches per decode step, at least one offline
+              step, and the train step counter at offline steps + 2;
+  7. profile  MuxFlow's measurement loop on the card: the smoke suite's speed
               matrix (as `python -m repro_torch profile` builds it), schema
               clean and equal to the CPU-built matrix but for checksums,
               which agree within a stated tolerance; all three kernels must
               launch; then the measured speed predictor trained on the card;
-  7. train    three momentum-SGD steps of xlstm-350m FULL in bf16 (batch 2,
-              seq 512): finite losses, step time, peak memory;
-  8. timing   each kernel, its plain version and the library call that
+  8. train    three momentum-SGD steps of xlstm-350m FULL in bf16 (batch 2,
+              seq 512); five AdamW steps of h2o-danube-1.8b FULL in bf16
+              through `launch.train.run` (batch 8, seq 64): finite losses,
+              step time, peak memory; then a checkpoint of h2o-danube-1.8b
+              SMOKE's weights and AdamW state saved and restored to the card,
+              bit-equal;
+  9. timing   each kernel, its plain version and the library call that
               computes the same function (where one exists), at full width;
               decode attention, whose call is about as short on the card
               as the host's per-call Python, as device time in a CUDA graph
@@ -62,6 +75,14 @@ PEAK_EXP_S = 16 * 132 * 1.98e9
 
 MAIN = dict(B=8, Skv=4096, H=32, Hk=8, d=128)     # mistral-nemo-12b decode
 RAGGED = [1, 17, 512, 1000, 2048, 3000, 4095, 4096]
+# (B, Skv, H, Hk, d, kv_len): h2o-danube-1.8b's decode (d 80, G 4) on its
+# 4096-row ring, then at short caches (its SMOKE window's 16 rows, 128)
+DANUBE_SHAPES = [
+    (8, 4096, 32, 8, 80, [1, 16, 80, 1000, 2048, 3333, 4095, 4096]),
+    (8, 4096, 32, 8, 80, 4096),
+    (3, 16, 8, 2, 80, [1, 9, 16]),
+    (4, 128, 32, 8, 80, [1, 17, 100, 128]),
+]
 # (B, Sq, Skv, H, Hk, d, causal, window): tests/test_kernels.py:20-26, the
 # catalog's flash-prefill, ragged tiles at d 80, a window without causal, d 256
 FLASH_SHAPES = [
@@ -195,7 +216,7 @@ def phase_device(torch) -> str:
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     kind = torch.cuda.get_device_name(0)
-    phase("1/8 device", kind=repr(kind), count=torch.cuda.device_count(),
+    phase("1/9 device", kind=repr(kind), count=torch.cuda.device_count(),
           capability=torch.cuda.get_device_capability(0),
           torch=torch.__version__, cuda=torch.version.cuda)
     return kind
@@ -207,7 +228,7 @@ def phase_build() -> None:
     paths = _build.build(*_build.sources())
     for name in paths:
         _build.load(name)
-    phase("2/8 build", kernels=",".join(paths),
+    phase("2/9 build", kernels=",".join(paths),
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
@@ -234,8 +255,9 @@ def check_decode(torch) -> float:
     main_err = 0.0
     cases = [((MAIN["B"], MAIN["Skv"], MAIN["H"], MAIN["Hk"], MAIN["d"]), kv)
              for kv in (RAGGED, 3000)]
-    cases += [(s[:5], s[5]) for s in EXTRA_SHAPES]
+    cases += [(s[:5], s[5]) for s in EXTRA_SHAPES + DANUBE_SHAPES]
     catalog = {}                  # the profile path's decode-serve shape
+    danube = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for i, ((B, Skv, H, Hk, d), kv_len) in enumerate(cases):
@@ -257,13 +279,17 @@ def check_decode(torch) -> float:
                 main_err = max(main_err, err)
             if (B, Skv, H, Hk, d, kv_len) == (4, 256, 4, 2, 64, 224):
                 catalog[str(dtype).split(".")[1]] = err
+            if d == 80:
+                danube[dtype] = max(danube[dtype], err)
             n += 1
     require(len(catalog) == 2, "the catalog's decode shape was not checked")
-    phase("3/8 kernels", kernel="decode_attention", cases=n,
+    phase("3/9 kernels", kernel="decode_attention", cases=n,
           max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
           max_abs_err_fp32=f"{worst[torch.float32]:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_fp32=f"{catalog['float32']:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_bf16=f"{catalog['bfloat16']:.3e}",
+          max_abs_err_danube_d80_G4_bf16=f"{danube[torch.bfloat16]:.3e}",
+          max_abs_err_danube_d80_G4_fp32=f"{danube[torch.float32]:.3e}",
           tol="atol:2e-5,rtol:fp32=2e-5,bf16=2e-5+2**-8",
           against="plain_in_fp32")
     return main_err
@@ -304,7 +330,7 @@ def check_flash(torch) -> float:
         del q, big, k, v, out
     torch.cuda.empty_cache()
     small = [e for (s, _), e in errs.items() if s in FLASH_SHAPES]
-    phase("3/8 kernels", kernel="flash_attention", cases=len(errs),
+    phase("3/9 kernels", kernel="flash_attention", cases=len(errs),
           max_abs_err_sweep=f"{max(small):.3e}",
           max_abs_err_mistral_S4096_bf16=f"{errs[(FLASH_MAIN, 'bfloat16')]:.3e}",
           max_abs_err_mistral_S4096_fp32=f"{errs[(FLASH_MAIN, 'float32')]:.3e}",
@@ -362,7 +388,7 @@ def check_ssm(torch) -> float:
     sweep = {a: max(e for (s, k), e in errs.items()
                     if k == a and s != SSM_MAIN)
              for a in ("shared", "per_channel")}
-    phase("3/8 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+    phase("3/9 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
           lanes="1,2,4",
           max_abs_err_sweep=f"{sweep['shared']:.3e}",
           max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
@@ -375,6 +401,31 @@ def check_ssm(torch) -> float:
 
 
 def phase_parity(torch) -> None:
+    import numpy as np
+    mistral = parity(torch, "mistral-nemo-12b", [np.array([0, 3, 10, 40])],
+                     steps=6, prompt=(2, 9), new=(2, 6))
+    phase("4/9 parity", config="mistral-nemo-12b/SMOKE/fp32",
+          logits_max_abs_err=f"{mistral:.3e}", tol="1e-4",
+          engine_tokens="equal")
+    # one position for every row, then ragged per-row positions: 40 steps
+    # each run every ring slot past the window of 16; the engine's requests
+    # (prompt + new tokens 18-32) run past it too
+    danube = parity(torch, "h2o-danube-1.8b",
+                    [np.zeros(4, np.int64), np.array([0, 5, 11, 30])],
+                    steps=40, prompt=(10, 21), new=(8, 14))
+    phase("4/9 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
+          cache_rows=16, steps="40_scalar_pos+40_ragged_pos",
+          logits_max_abs_err=f"{danube:.3e}", tol="1e-4",
+          engine_tokens="equal")
+
+
+def parity(torch, arch: str, starts: list, steps: int, prompt: tuple,
+           new: tuple) -> float:
+    """`arch` SMOKE in fp32, one set of weights on the card and on the CPU:
+    decode logits over `steps` steps from each row-position vector in
+    `starts` (fresh caches of capacity 64 each time; an all-equal vector is
+    passed as one int), then the serving engine's greedy tokens, which must
+    be equal.  Returns the logits' max abs error (limit 1e-4)."""
     import copy
 
     import numpy as np
@@ -383,30 +434,30 @@ def phase_parity(torch) -> None:
     from repro_torch.models import init_cache, init_params, make_decode_step
     from repro_torch.serving.engine import (EngineConfig, ServeRequest,
                                             ServingEngine)
-    cfg = get_config("mistral-nemo-12b", smoke=True, dtype=torch.float32)
+    cfg = get_config(arch, smoke=True, dtype=torch.float32)
     cpu = init_params(torch.Generator().manual_seed(0), cfg)
     gpu = copy.deepcopy(cpu).to("cuda")
     decode = make_decode_step(cfg)
     B, cap = 4, 64
-    caches = {"cpu": init_cache(cfg, B, cap, device="cpu"),
-              "cuda": init_cache(cfg, B, cap, device="cuda")}
     rng = np.random.default_rng(0)
-    start = np.array([0, 3, 10, 40])
     worst = 0.0
-    for step in range(6):
-        toks = rng.integers(0, cfg.vocab_size, (B, 1))
-        pos = start + step
-        want, _ = decode(cpu, caches["cpu"], torch.from_numpy(toks),
-                         torch.from_numpy(pos))
-        got, _ = decode(gpu, caches["cuda"], torch.from_numpy(toks).cuda(),
-                        torch.from_numpy(pos))
-        worst = max(worst, compare(torch, got.cpu(), want, 1e-4, 1e-4))
+    for start in starts:
+        caches = {"cpu": init_cache(cfg, B, cap, device="cpu"),
+                  "cuda": init_cache(cfg, B, cap, device="cuda")}
+        for step in range(steps):
+            toks = rng.integers(0, cfg.vocab_size, (B, 1))
+            pos = (int(start[0]) + step if (start == start[0]).all()
+                   else torch.from_numpy(start + step))
+            want, _ = decode(cpu, caches["cpu"], torch.from_numpy(toks), pos)
+            got, _ = decode(gpu, caches["cuda"],
+                            torch.from_numpy(toks).cuda(), pos)
+            worst = max(worst, compare(torch, got.cpu(), want, 1e-4, 1e-4))
 
     def serve(params):
         r = np.random.default_rng(1)
         reqs = [ServeRequest(i, r.integers(0, cfg.vocab_size,
-                                           int(r.integers(2, 9))),
-                             max_new_tokens=int(r.integers(2, 6)))
+                                           int(r.integers(*prompt))),
+                             max_new_tokens=int(r.integers(*new)))
                 for i in range(6)]
         eng = ServingEngine(cfg, params, EngineConfig(num_slots=3,
                                                       kv_capacity=64))
@@ -415,10 +466,9 @@ def phase_parity(torch) -> None:
         eng.drain()
         return [req.output for req in reqs]
 
-    require(serve(gpu) == serve(cpu), "engine tokens differ: card vs CPU")
-    phase("4/8 parity", config="mistral-nemo-12b/SMOKE/fp32",
-          logits_max_abs_err=f"{worst:.3e}", tol="1e-4",
-          engine_tokens="equal")
+    require(serve(gpu) == serve(cpu), f"{arch}: engine tokens differ: card "
+            "vs CPU")
+    return worst
 
 
 def phase_serve(torch) -> dict:
@@ -442,7 +492,7 @@ def phase_serve(torch) -> dict:
     run_launches = da.launches
     require(run_launches == cfg.num_layers * res["decode_steps"],
             f"run: {run_launches} launches for {res['decode_steps']} steps")
-    phase("5/8 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+    phase("5/9 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
           p99_ms=res["p99_ms"], served=res["served"],
           decode_steps=res["decode_steps"], launches=run_launches,
           wall_s=f"{wall:.1f}")
@@ -477,7 +527,7 @@ def phase_serve(torch) -> dict:
                                        device="cuda"), 100)
     require(tuple(logits.shape) == (8, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    phase("5/8 serve.engine", requests=len(reqs), decode_steps=eng.steps,
+    phase("5/9 serve.engine", requests=len(reqs), decode_steps=eng.steps,
           new_tokens=new, tokens_per_s=f"{new / wall:.1f}",
           wall_s=f"{wall:.2f}", launches=eng_launches,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -485,6 +535,62 @@ def phase_serve(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"decode_attention": run_launches + eng_launches}
+
+
+def phase_share(torch) -> int:
+    """MuxFlow's on-device unit at h2o-danube-1.8b FULL: the decode step
+    alone, then with AdamW train steps of a second copy packed in by the
+    multiplexer.  Returns the decode kernel's launches of both runs."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch.serve import run
+    cfg = get_config("h2o-danube-1.8b", smoke=False)
+    require(cfg.num_layers == 24 and cfg.d_model == 2560
+            and cfg.window == 4096, "not h2o-danube-1.8b FULL")
+    requests, total = 200, 0
+    for share in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        da.launches = 0
+        t = time.perf_counter()
+        res = run("h2o-danube-1.8b", smoke=False, batch=8, kv_cap=4096,
+                  requests=requests, share=share, device="cuda")
+        wall = time.perf_counter() - t
+        n = da.launches
+        require(n == cfg.num_layers * res["decode_steps"],
+                f"share={share}: {n} launches for {res['decode_steps']} "
+                "decode steps")
+        require(res["served"] >= 1, f"share={share}: nothing served")
+        if share:
+            require(res["offline_steps"] >= 1, "no offline step ran")
+            require(res["train_steps_done"] == res["offline_steps"] + 2,
+                    f"train steps {res['train_steps_done']} for "
+                    f"{res['offline_steps']} offline steps")
+        total += n
+        # the offline step `run` timed: oversold = offline_steps /
+        # (horizon / off_step), the horizon the last arrival + 1 s
+        rng = np.random.default_rng(0)
+        horizon = float(np.cumsum(rng.exponential(1 / 40.0, requests))[-1]) + 1
+        off_ms = (res["oversold"] * horizon / res["offline_steps"] * 1e3
+                  if share else None)
+        # the SLO guard's eviction ends the run early: fewer served
+        phase("6/9 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
+              batch=8, kv_cap=4096, requests=requests,
+              base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+              p99_ms=res["p99_ms"], served=res["served"],
+              evicted=res["served"] < requests,
+              offline_steps=res["offline_steps"], offline_step_ms=off_ms,
+              offline_duty=res["offline_duty"], oversold=res["oversold"],
+              train_steps_done=res["train_steps_done"],
+              decode_steps=res["decode_steps"], launches=n,
+              peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+              wall_s=f"{wall:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 # card vs CPU checksum limits: the kernel workloads sum fp32 outputs (each
@@ -524,13 +630,13 @@ def phase_profile(torch) -> dict:
         atol, rtol = CHECKSUM_TOL[name]
         require(abs(g - w) <= atol + rtol * abs(w),
                 f"{name}: checksum {g} on the card, {w} on the CPU")
-        phase("6/8 profile.exec", workload=name, device="cuda",
+        phase("7/9 profile.exec", workload=name, device="cuda",
               steps=rec.steps_executed,
               wall_ms_per_step=rec.wall_ms_per_step, checksum_card=g,
               checksum_cpu=w, tol=f"atol:{atol},rtol:{rtol}")
     require(got == want, "the card's matrix differs from the CPU-built one "
             "in a field other than the checksums")
-    phase("6/8 profile", suite="smoke", seed=0, pairs=len(card.pairs),
+    phase("7/9 profile", suite="smoke", seed=0, pairs=len(card.pairs),
           cells=sum(len(p["shares"]) for p in card.pairs), schema="clean",
           matrix="equal_to_cpu_but_checksums", launches=counts,
           wall_s=f"{wall:.2f}", cpu_matrix_s=f"{cpu_s:.2f}")
@@ -545,7 +651,7 @@ def phase_profile(torch) -> dict:
             f"bad validation MAE {maes}")
     require(all(p[0]["w"].device.type == "cuda"
                 for p in pred.params_by_type.values()), "predictor not on card")
-    phase("6/8 profile.predictor", device="cuda",
+    phase("7/9 profile.predictor", device="cuda",
           epochs=len(hist["T4"]["val_mae"]),
           **{f"final_val_mae_{gpu}": m for gpu, m in maes.items()},
           seconds=f"{secs:.2f}")
@@ -577,12 +683,123 @@ def phase_train(torch) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    phase("7/8 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
+    phase("8/9 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
           params=cfg.param_count(), losses=losses, step_ms=ms,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
+    train_danube(torch)
+    offline_step_breakdown(torch)
+    checkpoint_roundtrip(torch)
+
+
+def train_danube(torch) -> None:
+    """Five AdamW steps of h2o-danube-1.8b FULL in bf16 through the train
+    launcher (no checkpoints); it prints each step's loss and its running
+    ms a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config("h2o-danube-1.8b", smoke=False)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = train.run("h2o-danube-1.8b", smoke=False, steps=5, batch=8, seq=64,
+                    log_every=1, device="cuda")
+    wall = time.perf_counter() - t
+    losses = out["losses"]
+    require(out["steps_done"] == 5 and not out["interrupted"]
+            and all(math.isfinite(v) for v in losses), f"train.run {out}")
+    phase("8/9 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
+          batch=8, seq=64, params=cfg.param_count(), losses=losses,
+          wall_s=f"{wall:.2f}",
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def offline_step_breakdown(torch) -> None:
+    """`serve --share`'s offline step (h2o-danube-1.8b FULL, bf16, batch
+    4 x 32 tokens) in its two parts: the AdamW update, timed from a
+    synchronise to a synchronise around the optimizer's call, and the rest
+    of the step (the gradient: forward and backward under autograd); three
+    steps after a warm-up.  The update's bound counts what AdamW must move:
+    each parameter and gradient read and the parameter written (bf16), m and
+    v read and written (fp32), 22 bytes a parameter."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import AdamW, AdamWConfig
+    cfg = get_config("h2o-danube-1.8b", smoke=False)
+    params = init_params(torch.Generator(device="cuda").manual_seed(1), cfg)
+    opt = AdamW(AdamWConfig(lr=1e-3, total_steps=10_000))
+    update_s = []
+
+    class TimedAdamW:
+        def update(self, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = opt.update(*args)
+            torch.cuda.synchronize()
+            update_s.append(time.perf_counter() - t)
+            return out
+
+    state = opt.init(params.parameters())
+    step = make_train_step(cfg, TimedAdamW())
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 4))
+    step_s = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, _ = step(params, state, pipe.batch_at(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    n = cfg.param_count()
+    phase("8/9 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
+          batch=4, seq=32, step_ms=[t * 1e3 for t in step_s[1:]],
+          grad_ms=[(t - u) * 1e3 for t, u in zip(step_s[1:], update_s[1:])],
+          adamw_ms=[u * 1e3 for u in update_s[1:]],
+          adamw_tensors=len(state["m"]),
+          adamw_bound_ms=22 * n / PEAK_BYTES_S * 1e3, adamw_bound_by="bytes")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def checkpoint_roundtrip(torch) -> None:
+    """h2o-danube-1.8b SMOKE in bf16 after two AdamW steps on the card
+    (master weights kept, so every kind of state is there): weights and
+    optimizer state saved, restored to the card, and compared bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step, restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import init_params, make_train_step
+    from repro_torch.optim import AdamW, AdamWConfig
+    cfg = get_config("h2o-danube-1.8b", smoke=True)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = AdamW(AdamWConfig(lr=1e-3, master_weights=True))
+    state = opt.init(params.parameters())
+    step = make_train_step(cfg, opt)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 4))
+    for i in range(2):
+        params, state, _ = step(params, state, pipe.batch_at(i))
+    tree = (list(params.parameters()), state)
+    with tempfile.TemporaryDirectory() as d:
+        save(d, 2, tree)
+        require(latest_step(d) == 2, "checkpoint not published")
+        back, at = restore(d, tree, device="cuda")
+
+    def leaves(t):
+        weights, st = t
+        return [*weights, *st["m"], *st["v"], *st["master"], st["step"]]
+
+    pairs = list(zip(leaves(tree), leaves(back)))
+    require(at == 2 and len(pairs) == 4 * len(tree[0]) + 1 and all(
+        y.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in pairs), "restored checkpoint differs")
+    phase("8/9 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
+          leaves=len(pairs), step=at, restored_to="cuda", equal="bitwise")
 
 
 def phase_timing(torch, launches: dict, max_err: dict) -> list:
@@ -608,7 +825,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
         da._library(), dev, dtype, H, Hk, d))
     call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
-    phase("8/8 timing", kernel="decode_attention",
+    phase("9/9 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
           ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
           splits=ns, split_len=split_len)
@@ -633,7 +850,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     nbytes = (2 * B * kv_len * Hk * d + 2 * B * H * d) * item + 4 * B
     flops = 4 * B * H * kv_len * d
     bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
-    phase("8/8 timing", kernel="decode_attention",
+    phase("9/9 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{kv_len}",
           ms=ms, events_ms=events_ms, plain_ms=plain_ms,
           library_ms=library_ms, library_events_ms=library_events_ms,
@@ -661,7 +878,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             ptxas[f"wgmma_forward_{dp_bk}"] = (
                 f"regs:{r.get('registers')},spill_bytes:"
                 f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("8/8 timing", kernel="flash_attention", design="wgmma",
+    phase("9/9 timing", kernel="flash_attention", design="wgmma",
           bf16_tile=fa.tile_plan(d), **ptxas)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -688,7 +905,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
     flops = 4 * B * H * visible * d
     nbytes = (2 * B * Sq * H * d + 2 * B * Skv * Hk * d) * q.element_size()
     bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
-    phase("8/8 timing", kernel="flash_attention",
+    phase("9/9 timing", kernel="flash_attention",
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal", ms=ms,
           plain_ms=plain_ms, library_ms=library_ms,
           library_vs_kernel_max_abs_diff=f"{library_err:.3e}",
@@ -720,7 +937,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         ptxas[f"N{n}_L{lanes}"] = (
             f"regs:{r.get('registers')},spill_bytes:"
             f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("8/8 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
+    phase("9/9 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
     shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
@@ -731,7 +948,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
         events_ms = time_ms(torch, call)
         clock = sm_clock()
-        phase("8/8 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+        phase("9/9 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
               ms=events_ms, sm_clock_mhz=clock,
               graph_ms=graph_ms(torch, call))
     plan = ss.lane_plan(B, di, N,
@@ -750,7 +967,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("8/8 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+    phase("9/9 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
           channels_per_block=plan.channels, blocks=plan.blocks,
           busiest_sm_channels=plan.busiest,
           mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
@@ -786,8 +1003,9 @@ def main() -> int:
     max_err = phase_kernels(torch)
     phase_parity(torch)
     serve = phase_serve(torch)
+    shared = phase_share(torch)
     launches = phase_profile(torch)
-    launches["decode_attention"] += serve["decode_attention"]
+    launches["decode_attention"] += serve["decode_attention"] + shared
     missing = [name for name, n in launches.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
     phase_train(torch)

@@ -22,6 +22,7 @@ ARCH_IDS = [
 ]
 
 PORTED = {
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "xlstm-350m": "xlstm_350m",
 }

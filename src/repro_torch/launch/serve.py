@@ -1,13 +1,17 @@
 """Online-serving entry point: the decode step MuxFlow protects, run through
-the multiplexer.  Port of `repro/launch/serve.py` for the online path
-(`share=False`).
+the multiplexer, optionally space-shared with an offline AdamW train step of
+a second copy of the same architecture (`--share`).  Port of
+`repro/launch/serve.py`.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b --no-smoke
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+      --no-smoke --share
 
 `--smoke/--no-smoke` chooses the SMOKE or the FULL config; `repro`'s parser
 declared `--smoke` as `store_true` with default True, so FULL could not be
-chosen there.  `--share` (co-locating an offline train step) needs the train
-step and its backward kernels, which are not ported yet.
+chosen there.  The multiplexer keeps `repro`'s quota settings
+(`offline_state_bytes=0`, `MuxConfig.device_bytes` 16 GiB): `run` never
+consults the quota, and 0.4 x 16 GiB would refuse h2o-danube-1.8b's 22 GB
+of offline state if it did.
 """
 from __future__ import annotations
 
@@ -20,7 +24,10 @@ import torch
 from repro_torch import resolve_device, synchronize
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.multiplexer import Multiplexer, MuxConfig
-from repro_torch.models import init_cache, init_params, make_decode_step
+from repro_torch.data import DataConfig, TokenPipeline
+from repro_torch.models import (init_cache, init_params, make_decode_step,
+                                make_train_step)
+from repro_torch.optim import AdamW, AdamWConfig
 
 
 def run(arch: str, *, smoke: bool = True, requests: int = 200,
@@ -28,12 +35,10 @@ def run(arch: str, *, smoke: bool = True, requests: int = 200,
         seed: int = 0, batch: int = 4, kv_cap: int = 128,
         device=None) -> dict:
     """Serve `requests` Poisson arrivals through the multiplexer; every
-    online step is one timed decode step of the whole batch.  Returns
-    `repro`'s keys plus `decode_steps`, the decode steps run in all."""
-    if share:
-        raise NotImplementedError(
-            "--share needs the train step and its backward kernels, which "
-            "are not ported yet; see ROADMAP.md")
+    online step is one timed decode step of the whole batch, every offline
+    step (with `share`) one timed AdamW step of batch 4 x 32 tokens.
+    Returns `repro`'s keys plus `decode_steps`, the decode steps run in
+    all."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
@@ -59,22 +64,44 @@ def run(arch: str, *, smoke: bool = True, requests: int = 200,
         pos[0] += 1
         return dt
 
-    off_step = 1.0
+    state = {}
+    if share:
+        opt = AdamW(AdamWConfig(lr=1e-3, total_steps=10_000))
+        tparams = init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+        state = {"p": tparams, "o": opt.init(tparams.parameters()), "step": 0}
+        train = make_train_step(cfg, opt)
+        pipe = TokenPipeline(DataConfig(cfg.vocab_size, 32, 4))
 
-    def offline_fn() -> float:
-        return off_step
+        def offline_fn() -> float:
+            synchronize(dev)
+            t = time.perf_counter()
+            state["p"], state["o"], _ = train(state["p"], state["o"],
+                                              pipe.batch_at(state["step"]))
+            synchronize(dev)
+            state["step"] += 1
+            return time.perf_counter() - t
+
+        offline_fn()                                # warm up
+        off_step = offline_fn()                     # the offline microstep
+    else:
+        off_step = 1.0
+
+        def offline_fn() -> float:
+            return off_step
 
     rng = np.random.default_rng(seed)
     arrivals = np.cumsum(rng.exponential(1.0 / qps, size=requests)).tolist()
     horizon = arrivals[-1] + 1.0
     mux = Multiplexer(online_fn, offline_fn, base_step, off_step,
                       MuxConfig(slo_slowdown=slo), offline_state_bytes=0)
-    stats = mux.run(arrivals, horizon, max_offline_steps=0)
+    stats = mux.run(arrivals, horizon,
+                    max_offline_steps=None if share else 0)
     return {"base_ms": base_step * 1e3, "p50_ms": stats.p50_ms,
             "p99_ms": stats.p99_ms, "served": stats.served,
             "offline_steps": stats.offline_steps,
             "offline_duty": stats.offline_duty, "oversold": stats.oversold,
-            "train_steps_done": 0, "decode_steps": steps[0]}
+            "train_steps_done": state.get("step", 0),
+            "decode_steps": steps[0]}
 
 
 def main(argv: list[str] | None = None) -> None:

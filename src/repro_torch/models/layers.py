@@ -1,5 +1,6 @@
 """Core model layers for the dense GQA decoder: RMSNorm, RoPE, GQA
-projections, GLU FFN (decode attention is `kernels.ops.decode_attention`).
+projections, the train forward's attention, GLU FFN (decode attention is
+`kernels.ops.decode_attention`).
 
 Parameters live in small `nn.Module`s whose names mirror `repro`'s parameter
 tree; the layer functions take the module and the activations.  Weights keep
@@ -12,6 +13,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# above this many scores a head `repro` streams over KV chunks
+# (`attention_chunked`), which is not ported
+_MATERIALIZE_LIMIT = 4096 * 4096
+_CHUNK_Q = _CHUNK_K = 2048
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -80,6 +87,45 @@ def gqa_project_qkv(attn: GQA, x: torch.Tensor, cfg, rope: tuple):
     k = (x @ attn.w_k).reshape(B, S, Hk, dh)
     v = (x @ attn.w_v).reshape(B, S, Hk, dh)
     return apply_rope(q, rope), apply_rope(k, rope), v
+
+
+def repeat_kv(k: torch.Tensor, G: int) -> torch.Tensor:
+    """(B,S,Hk,dh) -> (B,S,Hk*G,dh), each KV head repeated for its G query
+    heads."""
+    return torch.repeat_interleave(k, G, dim=2) if G > 1 else k
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """`repro`'s materialised GQA attention, under autograd (the train
+    forward; `repro` ran no Pallas kernel there).  q: (B,Sq,H,dh); k, v:
+    (B,Skv,Hk,dh).  Query row i sees keys j <= i (causal) and j > i - window.
+    Its rounding points: q scaled by dh**-0.5 in the model type, scores
+    accumulated in fp32, the softmax in fp32, probs cast to v's type, P.V
+    accumulated in fp32 and cast to q's type.  Returns (B,Sq,H,dh)."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    if (Sq * Skv > _MATERIALIZE_LIMIT and Sq > 1 and Sq % _CHUNK_Q == 0
+            and Skv % _CHUNK_K == 0):
+        raise NotImplementedError(
+            f"attention at Sq={Sq}, Skv={Skv}: `repro` streams KV chunks "
+            "there (attention_chunked), which is not ported; see ROADMAP.md")
+    G = H // k.shape[2]
+    k, v = repeat_kv(k, G), repeat_kv(v, G)
+    scores = torch.einsum("bqhd,bkhd->bhqk", (q * dh ** -0.5).float(),
+                          k.float())
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
 
 
 def ffn(params: FFN, x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,19 @@
 """Model core for the port: config, init, KV cache and the forward pass.
 
 Two patterns are ported:
-  * dense GQA `(("attn", "dense"),)` in `decode` mode (one token against the
-    cache, the online-serving hot path);
+  * dense GQA `(("attn", "dense"),)`, full or sliding-window attention, in
+    `decode` mode (one token against the cache, the online-serving hot path)
+    and in `train` mode (full-sequence logits, the offline train step);
   * mLSTM `(("mlstm", "none"),)` in `train` mode (full-sequence logits, the
     offline train step of the profiling catalog).
 Blocks are an `nn.ModuleList` of per-layer modules, run by a Python loop; the
 cache keeps `repro`'s layout, a tuple over pattern positions of {"k", "v"}
-tensors with a leading `repeats` dimension.
+tensors with a leading `repeats` dimension.  A sliding-window model's cache
+holds min(window, capacity) rows; at `window` rows it is `repro`'s ring.
+
+`repro` wrapped the train forward's layer scan in `jax.checkpoint` (remat),
+which only trades recomputation for activation memory; the port keeps
+autograd's saved activations instead.
 """
 from __future__ import annotations
 
@@ -51,13 +57,12 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
 
     def __post_init__(self):
-        dense = (self.pattern == DENSE_PATTERN and self.window is None
-                 and self.ffn_act == "silu")
+        dense = self.pattern == DENSE_PATTERN and self.ffn_act == "silu"
         if not (dense or self.pattern == MLSTM_PATTERN):
             raise NotImplementedError(
-                f"{self.name}: only the dense full-attention pattern "
-                f"{DENSE_PATTERN} with a SiLU FFN and the mLSTM pattern "
-                f"{MLSTM_PATTERN} are ported; see ROADMAP.md")
+                f"{self.name}: only the dense pattern {DENSE_PATTERN} (full "
+                "or sliding-window attention) with a SiLU FFN and the mLSTM "
+                f"pattern {MLSTM_PATTERN} are ported; see ROADMAP.md")
 
     @property
     def repeats(self) -> int:
@@ -152,9 +157,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
 def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
                device=None) -> tuple:
     """Decode cache: tuple over pattern positions of {"k", "v"}, each
-    (repeats, batch, kv_capacity, Hk, head_dim) zeros in cfg.dtype."""
+    (repeats, batch, cap, Hk, head_dim) zeros in cfg.dtype, where cap is
+    kv_capacity, or min(window, kv_capacity) for a sliding window (the
+    ring's bound)."""
     dev = resolve_device(device)
-    shape = (cfg.repeats, batch, kv_capacity, cfg.num_kv_heads, cfg.head_dim)
+    cap = (kv_capacity if cfg.window is None
+           else min(cfg.window, kv_capacity))
+    shape = (cfg.repeats, batch, cap, cfg.num_kv_heads, cfg.head_dim)
     return tuple({"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                   "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
                  for _ in cfg.pattern)
@@ -170,32 +179,47 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
             mode: str = "decode", cache: tuple | None = None, pos=None):
     """decode (dense pattern): batch={"tokens": (B, 1)}, cache, pos (int or
     (B,)) -> (logits (B, Vpad), cache).
-    train (mLSTM pattern): batch={"tokens": (B, S)} -> (logits (B, S, Vpad),
-    aux), aux a zero scalar (no MoE).
+    train: batch={"tokens": (B, S)} -> (logits (B, S, Vpad), aux), aux a
+    zero scalar (no MoE).
 
     In decode the cache is updated in place: `repro` wrote a new cache
     functionally, which at full width would copy every layer's cache on
     every step.  The returned cache is the object passed in."""
     if mode == "train" and cfg.pattern == MLSTM_PATTERN:
         return _forward_train_mlstm(params, cfg, batch)
+    if mode == "train" and cfg.pattern == DENSE_PATTERN:
+        return _forward_train_dense(params, cfg, batch)
     if mode != "decode" or cache is None or cfg.pattern != DENSE_PATTERN:
         raise NotImplementedError(
             f"mode={mode!r} for pattern {cfg.pattern}: only decode against a "
-            "cache (dense) and train (mLSTM) are ported; see ROADMAP.md")
+            "cache (dense) and train (dense, mLSTM) are ported; see "
+            "ROADMAP.md")
     dev = params.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     B = tokens.shape[0]
     H, dh = cfg.num_heads, cfg.head_dim
     kc_all, vc_all = cache[0]["k"], cache[0]["v"]
-    # kv_len = pos + 1 is checked against the capacity once, on the host; a
-    # pos on the card is copied there first (one wait for the card), so that
-    # a position past the cache raises instead of being clamped by the kernel
-    host_lens = torch.as_tensor(pos).cpu() + 1
-    lens = kv_lengths(host_lens, B, kc_all.shape[2], dev)
+    cap = kc_all.shape[2]
+    # `repro`'s ring: a sliding-window cache of exactly `window` rows, written
+    # at slot pos % window.  Its valid slots are the first min(pos + 1, W)
+    # (the softmax does not depend on their order), so the kernel reads them
+    # with kv_len = min(pos + 1, W); rotary angles keep the absolute position.
+    ring = cfg.window is not None and cap == cfg.window
+    # kv_len is checked against the capacity once, on the host; a pos on the
+    # card is copied there first (one wait for the card), so that a position
+    # past the cache raises instead of being clamped by the kernel
+    host_pos = torch.as_tensor(pos).cpu().long().reshape(-1).expand(B)
+    host_lens = host_pos + 1
+    if ring:
+        host_lens = torch.clamp(host_lens, max=cap)
+    host_lens = kv_lengths(host_lens, B, cap, torch.device("cpu"))
+    # one copy to the card: the positions and the lengths side by side
+    pos_lens = torch.stack([host_pos.int(), host_lens]).to(dev)
+    pos_b, lens = pos_lens[0].long(), pos_lens[1]              # (B,) each
     # attention reads the caches cut to the longest live sequence (a view):
     # no row past it is visible, and the kernel sizes its split from it
     live = int(host_lens.max())
-    pos_b = lens.long() - 1                                  # (B,)
+    slot = pos_b % cap if ring else pos_b
     rope = L.rope_table(pos_b[:, None], dh, cfg.rope_theta)
     rows = torch.arange(B, device=dev)
 
@@ -204,8 +228,8 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
         h = L.rmsnorm(blk.norm1, x)
         q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
         kc, vc = kc_all[r], vc_all[r]
-        kc[rows, pos_b] = k[:, 0]
-        vc[rows, pos_b] = v[:, 0]
+        kc[rows, slot] = k[:, 0]
+        vc[rows, slot] = v[:, 0]
         # every Sq == 1 attention takes the decode kernel, MHA included
         # (`repro` sent MHA down its dense path: the same function)
         o = ops.decode_attention(q, kc[:, :live], vc[:, :live], lens)
@@ -214,6 +238,23 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
         x = x + L.ffn(blk.ffn, h)
     x = L.rmsnorm(params.final_norm, x)
     return x[:, 0] @ params.lm_head, cache
+
+
+def _forward_train_dense(params: Transformer, cfg: ModelConfig, batch: dict):
+    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)
+    rope = L.rope_table(positions[None], cfg.head_dim, cfg.rope_theta)
+    x = _embed(params, cfg, tokens)
+    for blk in params.blocks:
+        h = L.rmsnorm(blk.norm1, x)
+        q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
+        o = L.attention(q, k, v, causal=True, window=cfg.window)
+        x = x + o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ blk.attn.w_o
+        h = L.rmsnorm(blk.norm2, x)
+        x = x + L.ffn(blk.ffn, h)
+    x = L.rmsnorm(params.final_norm, x)
+    return x @ params.lm_head, torch.zeros((), device=x.device)
 
 
 def _forward_train_mlstm(params: Transformer, cfg: ModelConfig, batch: dict):

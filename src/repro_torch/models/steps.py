@@ -51,23 +51,50 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     return ce, (ce, aux)
 
 
-def make_train_step(cfg: ModelConfig, optimizer):
+def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics), one microbatch.  The gradient comes from torch autograd; the
-    optimizer writes the new weights into `params` in place, and the
-    returned params are the module passed in."""
+    metrics).  The gradient comes from torch autograd; the optimizer writes
+    the new weights into `params` in place, and the returned params are the
+    module passed in.
 
-    def train_step(params, opt_state, batch):
-        weights = list(params.parameters())
+    microbatches > 1 accumulates gradients: the batch is split along dim 0,
+    each part's gradients are summed in fp32, and the sum and the loss, ce
+    and aux are scaled by 1/microbatches (`repro`'s scan over parts)."""
+
+    def grads_of(weights, params, batch):
         with torch.enable_grad():
             for w in weights:
                 w.requires_grad_(True)
-            loss, (ce, aux) = loss_fn(params, cfg, batch)
-            grads = torch.autograd.grad(loss, weights)
-            for w in weights:
-                w.requires_grad_(False)
+            try:
+                loss, (ce, aux) = loss_fn(params, cfg, batch)
+                grads = torch.autograd.grad(loss, weights)
+            finally:
+                for w in weights:
+                    w.requires_grad_(False)
+        return loss.detach(), ce.detach(), aux, grads
+
+    def train_step(params, opt_state, batch):
+        weights = list(params.parameters())
+        if microbatches == 1:
+            loss, ce, aux, grads = grads_of(weights, params, batch)
+        else:
+            n = len(next(iter(batch.values()))) // microbatches
+            zero = torch.zeros((), device=params.embed.device)
+            acc = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                   for w in weights]
+            loss, ce, aux = zero, zero, zero
+            for i in range(microbatches):
+                part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, c, a, grads = grads_of(weights, params, part)
+                for s, g in zip(acc, grads):
+                    s += g.float()
+                loss, ce, aux = loss + l, ce + c, aux + a
+                del grads
+            scale = 1.0 / microbatches
+            grads = [s.mul_(scale) for s in acc]
+            loss, ce, aux = loss * scale, ce * scale, aux * scale
         _, opt_state, gnorm = optimizer.update(weights, grads, opt_state)
-        metrics = {"loss": loss.detach(), "ce": ce.detach(), "moe_aux": aux,
+        metrics = {"loss": loss, "ce": ce, "moe_aux": aux,
                    "grad_norm": gnorm}
         return params, opt_state, metrics
 

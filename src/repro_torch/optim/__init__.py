@@ -1,1 +1,3 @@
-from .optimizer import MomentumSGD, MomentumSGDConfig, global_norm  # noqa: F401
+from .optimizer import (AdamW, AdamWConfig, MomentumSGD,  # noqa: F401
+                        MomentumSGDConfig, clip_by_global_norm, cosine_lr,
+                        global_norm)

@@ -26,6 +26,7 @@ CASES = [
     (3, 256, 4, 4, 128, 17, 128),       # MHA, short prefix
     (3, 256, 4, 2, 128, [1, 100, 256], 128),
     (4, 512, 8, 2, 64, [5, 256, 257, 511], 128),
+    (3, 256, 8, 2, 80, [1, 16, 256], 128),   # h2o-danube-1.8b: d 80, G 4
 ]
 
 
@@ -139,6 +140,7 @@ def test_kernel_refuses_cpu_tensors():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Skv,H,Hk,d,kv_len,block_k", CASES + [
     (8, 4096, 32, 8, 128, [1, 17, 512, 1000, 2048, 3000, 4095, 4096], 512),
+    (8, 4096, 32, 8, 80, [1, 16, 80, 1000, 2048, 3333, 4095, 4096], 512),
     # kv_len 1 and the capacity, one split and many, G 1, 3 and 8
     (2, 64, 3, 1, 128, [1, 64], 64),
     (2, 4096, 8, 1, 64, [1, 4096], 512),

@@ -105,13 +105,15 @@ def test_position_past_the_cache_raises(device, pos):
 
 
 def test_only_decode_is_ported(setup):
+    """Decode and train are ported for the dense pattern; prefill is not."""
     _, _, cfg, model = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         forward(model, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                mode="train")
+                mode="prefill")
 
 
-@pytest.mark.parametrize("change", [{"window": 64}, {"ffn_act": "gelu"},
+@pytest.mark.parametrize("change", [{"pattern": (("mamba", "dense"),)},
+                                    {"ffn_act": "gelu"},
                                     {"pattern": (("attn", "moe"),)}])
 def test_unported_model_variants_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax_or_repro():
         "       'serving_plane.arrivals', 'optim.optimizer', 'data.pipeline',\n"
         "       'models.ssm', 'configs.xlstm_350m', 'profiling.workloads',\n"
         "       'profiling.harness', 'profiling.matrix',\n"
-        "       'profiling.calibrate')}\n"
+        "       'profiling.calibrate', 'configs.h2o_danube_1_8b',\n"
+        "       'checkpoint.checkpointing', 'runtime.fault_tolerance',\n"
+        "       'launch.train')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
@@ -64,12 +66,14 @@ def test_every_module_imports_without_jax_or_repro():
     assert int(proc.stdout.strip()) >= 35
 
 
-def test_entry_points_refuse_cpu_without_asking():
+def test_entry_points_refuse_cpu_without_asking(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     from repro_torch import resolve_device
+    from repro_torch.checkpoint import restore, save
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run
+    from repro_torch.launch.train import run as train_run
     from repro_torch.models import init_cache
     from repro_torch.models.convert import mlp_from_jax, params_from_jax
     from repro_torch.profiling.calibrate import build_measured_predictor
@@ -77,9 +81,13 @@ def test_entry_points_refuse_cpu_without_asking():
                                                build_speed_matrix)
     from repro_torch.profiling.workloads import build_catalog, execute
     cfg = get_config("mistral-nemo-12b", smoke=True)
+    save(str(tmp_path), 1, [torch.zeros(1)])
     refused = [
         resolve_device,
         lambda: run("mistral-nemo-12b", requests=2),
+        lambda: run("h2o-danube-1.8b", share=True, requests=2),
+        lambda: train_run("h2o-danube-1.8b", steps=1),
+        lambda: restore(str(tmp_path), [torch.zeros(1)]),
         lambda: init_cache(cfg, 1, 8),
         lambda: params_from_jax({"blocks": [{}]}, cfg),
         lambda: params_from_jax({"blocks": [{}]},

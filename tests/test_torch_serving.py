@@ -27,27 +27,37 @@ from repro_torch.serving.engine import EngineConfig, ServeRequest, ServingEngine
 ARCH = "mistral-nemo-12b"
 
 
-def ragged_requests(make, vocab, seed=1, n=6):
-    """tests/test_serving_engine.py's ragged batch."""
+def ragged_requests(make, vocab, seed=1, n=6, prompt=(2, 9), new=(2, 6)):
+    """tests/test_serving_engine.py's ragged batch (prompt and new-token
+    counts drawn from the given ranges)."""
     rng = np.random.default_rng(seed)
-    return [make(i, rng.integers(0, vocab, int(rng.integers(2, 9))).astype(np.int32),
-                 max_new_tokens=int(rng.integers(2, 6)))
+    return [make(i, rng.integers(0, vocab, int(rng.integers(*prompt))).astype(np.int32),
+                 max_new_tokens=int(rng.integers(*new)))
             for i in range(n)]
 
 
-def test_engine_greedy_tokens_match_jax():
-    jcfg = dataclasses.replace(jax_get_config(ARCH, smoke=True),
+# h2o-danube-1.8b SMOKE has a window of 16: its requests run past it, so
+# the engine decodes on the ring cache
+@pytest.mark.parametrize("arch,lengths", [
+    (ARCH, {}),
+    ("h2o-danube-1.8b", {"prompt": (10, 21), "new": (8, 14)}),
+])
+def test_engine_greedy_tokens_match_jax(arch, lengths):
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True),
                                dtype=jnp.float32)
     jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
-    cfg = get_config(ARCH, smoke=True, dtype=torch.float32)
+    cfg = get_config(arch, smoke=True, dtype=torch.float32)
     model = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
                             device="cpu")
 
-    jreqs = ragged_requests(JaxServeRequest, cfg.vocab_size)
+    jreqs = ragged_requests(JaxServeRequest, cfg.vocab_size, **lengths)
     jeng = JaxServingEngine(jcfg, jparams,
                             JaxEngineConfig(num_slots=3, kv_capacity=64))
-    reqs = ragged_requests(ServeRequest, cfg.vocab_size)
+    reqs = ragged_requests(ServeRequest, cfg.vocab_size, **lengths)
     eng = ServingEngine(cfg, model, EngineConfig(num_slots=3, kv_capacity=64))
+    if cfg.window is not None:             # every request runs past the ring
+        assert eng.cache[0]["k"].shape[2] == cfg.window < min(
+            len(r.prompt) + r.max_new_tokens for r in reqs)
     for e, rs in ((jeng, jreqs), (eng, reqs)):
         for r in rs:
             e.submit(r)
@@ -106,5 +116,14 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_serve_share_needs_the_train_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.run(ARCH, smoke=True, device="cpu", share=True)
+    """`--share` packs AdamW train steps of the served architecture beside
+    its decode steps, here and in `repro` (wall-clock driven, so the
+    structure only): one warm-up and one timed step, then the
+    multiplexer's."""
+    arch = "h2o-danube-1.8b"
+    out = serve.run(arch, smoke=True, device="cpu", share=True, requests=20)
+    ref = jax_run(arch, smoke=True, share=True, requests=20)
+    assert set(out) == set(ref) | {"decode_steps"}
+    for o in (out, ref):
+        assert o["served"] >= 1 and o["offline_steps"] >= 1
+        assert o["train_steps_done"] == o["offline_steps"] + 2

@@ -233,9 +233,10 @@ def test_train_step_losses_vs_jax(carried):
 
 
 def test_train_mode_refused_for_the_dense_pattern():
+    """The mLSTM pattern runs train mode only: prefill is refused."""
     from repro_torch.models import forward
-    cfg = get_config("mistral-nemo-12b", smoke=True)
+    cfg = get_config(ARCH, smoke=True)
     model = init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         forward(model, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                mode="train")
+                mode="prefill")
