@@ -46,13 +46,27 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               of 20 calls (its library call too); the scan with events and
               in a CUDA graph, the SM clock read after its timed loop, the
               lanes a channel `lane_plan` chose, ptxas's registers and
-              spills for each template, and one line for each L it takes.
+              spills for each template, and one line for each L it takes;
+ 10. fleet    MuxFlow's scheduling step at the paper's 20,000 GPUs: phase 7's
+              card matrix and card-trained predictor drive
+              `run_policy(MeasuredMuxFlowPolicy(matrix=card_matrix), ...)`
+              (trace B, 30 s ticks, a round every 900 s, seed 0, SimConfig's
+              12 h) once on the numpy tick engine and once on the torch
+              engine on the card; the two SimResults must be equal byte for
+              byte as canonical JSON; `online-only` at the same fleet gives
+              the dedicated baseline; the card's predictions over one
+              round's weight grid against the same MLP on the CPU (1e-5);
+              one block of the torch engine under torch.profiler (the card's
+              busy time and launches); then 200 devices under heavy faults,
+              the torch engine in lockstep with numpy tick by tick and
+              byte-equal SimResults.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -216,7 +230,7 @@ def phase_device(torch) -> str:
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     kind = torch.cuda.get_device_name(0)
-    phase("1/9 device", kind=repr(kind), count=torch.cuda.device_count(),
+    phase("1/10 device", kind=repr(kind), count=torch.cuda.device_count(),
           capability=torch.cuda.get_device_capability(0),
           torch=torch.__version__, cuda=torch.version.cuda)
     return kind
@@ -228,7 +242,7 @@ def phase_build() -> None:
     paths = _build.build(*_build.sources())
     for name in paths:
         _build.load(name)
-    phase("2/9 build", kernels=",".join(paths),
+    phase("2/10 build", kernels=",".join(paths),
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
@@ -283,7 +297,7 @@ def check_decode(torch) -> float:
                 danube[dtype] = max(danube[dtype], err)
             n += 1
     require(len(catalog) == 2, "the catalog's decode shape was not checked")
-    phase("3/9 kernels", kernel="decode_attention", cases=n,
+    phase("3/10 kernels", kernel="decode_attention", cases=n,
           max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
           max_abs_err_fp32=f"{worst[torch.float32]:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_fp32=f"{catalog['float32']:.3e}",
@@ -330,7 +344,7 @@ def check_flash(torch) -> float:
         del q, big, k, v, out
     torch.cuda.empty_cache()
     small = [e for (s, _), e in errs.items() if s in FLASH_SHAPES]
-    phase("3/9 kernels", kernel="flash_attention", cases=len(errs),
+    phase("3/10 kernels", kernel="flash_attention", cases=len(errs),
           max_abs_err_sweep=f"{max(small):.3e}",
           max_abs_err_mistral_S4096_bf16=f"{errs[(FLASH_MAIN, 'bfloat16')]:.3e}",
           max_abs_err_mistral_S4096_fp32=f"{errs[(FLASH_MAIN, 'float32')]:.3e}",
@@ -388,7 +402,7 @@ def check_ssm(torch) -> float:
     sweep = {a: max(e for (s, k), e in errs.items()
                     if k == a and s != SSM_MAIN)
              for a in ("shared", "per_channel")}
-    phase("3/9 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+    phase("3/10 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
           lanes="1,2,4",
           max_abs_err_sweep=f"{sweep['shared']:.3e}",
           max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
@@ -404,7 +418,7 @@ def phase_parity(torch) -> None:
     import numpy as np
     mistral = parity(torch, "mistral-nemo-12b", [np.array([0, 3, 10, 40])],
                      steps=6, prompt=(2, 9), new=(2, 6))
-    phase("4/9 parity", config="mistral-nemo-12b/SMOKE/fp32",
+    phase("4/10 parity", config="mistral-nemo-12b/SMOKE/fp32",
           logits_max_abs_err=f"{mistral:.3e}", tol="1e-4",
           engine_tokens="equal")
     # one position for every row, then ragged per-row positions: 40 steps
@@ -413,7 +427,7 @@ def phase_parity(torch) -> None:
     danube = parity(torch, "h2o-danube-1.8b",
                     [np.zeros(4, np.int64), np.array([0, 5, 11, 30])],
                     steps=40, prompt=(10, 21), new=(8, 14))
-    phase("4/9 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
+    phase("4/10 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
           cache_rows=16, steps="40_scalar_pos+40_ragged_pos",
           logits_max_abs_err=f"{danube:.3e}", tol="1e-4",
           engine_tokens="equal")
@@ -492,7 +506,7 @@ def phase_serve(torch) -> dict:
     run_launches = da.launches
     require(run_launches == cfg.num_layers * res["decode_steps"],
             f"run: {run_launches} launches for {res['decode_steps']} steps")
-    phase("5/9 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+    phase("5/10 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
           p99_ms=res["p99_ms"], served=res["served"],
           decode_steps=res["decode_steps"], launches=run_launches,
           wall_s=f"{wall:.1f}")
@@ -527,7 +541,7 @@ def phase_serve(torch) -> dict:
                                        device="cuda"), 100)
     require(tuple(logits.shape) == (8, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    phase("5/9 serve.engine", requests=len(reqs), decode_steps=eng.steps,
+    phase("5/10 serve.engine", requests=len(reqs), decode_steps=eng.steps,
           new_tokens=new, tokens_per_s=f"{new / wall:.1f}",
           wall_s=f"{wall:.2f}", launches=eng_launches,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -577,7 +591,7 @@ def phase_share(torch) -> int:
         off_ms = (res["oversold"] * horizon / res["offline_steps"] * 1e3
                   if share else None)
         # the SLO guard's eviction ends the run early: fewer served
-        phase("6/9 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
+        phase("6/10 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=requests,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -599,9 +613,10 @@ CHECKSUM_TOL = {"flash-prefill": (1e-3, 1e-4), "decode-serve": (1e-3, 1e-4),
                 "ssm-scan": (1e-3, 1e-4), "lm-train-step": (0.0, 2e-2)}
 
 
-def phase_profile(torch) -> dict:
+def phase_profile(torch) -> tuple[dict, object, object]:
     """MuxFlow's measurement loop on the card.  Returns the kernels' launch
-    counts of this path."""
+    counts of this path, the card's speed matrix and the measured predictor
+    trained on the card."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as ss
@@ -630,13 +645,13 @@ def phase_profile(torch) -> dict:
         atol, rtol = CHECKSUM_TOL[name]
         require(abs(g - w) <= atol + rtol * abs(w),
                 f"{name}: checksum {g} on the card, {w} on the CPU")
-        phase("7/9 profile.exec", workload=name, device="cuda",
+        phase("7/10 profile.exec", workload=name, device="cuda",
               steps=rec.steps_executed,
               wall_ms_per_step=rec.wall_ms_per_step, checksum_card=g,
               checksum_cpu=w, tol=f"atol:{atol},rtol:{rtol}")
     require(got == want, "the card's matrix differs from the CPU-built one "
             "in a field other than the checksums")
-    phase("7/9 profile", suite="smoke", seed=0, pairs=len(card.pairs),
+    phase("7/10 profile", suite="smoke", seed=0, pairs=len(card.pairs),
           cells=sum(len(p["shares"]) for p in card.pairs), schema="clean",
           matrix="equal_to_cpu_but_checksums", launches=counts,
           wall_s=f"{wall:.2f}", cpu_matrix_s=f"{cpu_s:.2f}")
@@ -651,11 +666,11 @@ def phase_profile(torch) -> dict:
             f"bad validation MAE {maes}")
     require(all(p[0]["w"].device.type == "cuda"
                 for p in pred.params_by_type.values()), "predictor not on card")
-    phase("7/9 profile.predictor", device="cuda",
+    phase("7/10 profile.predictor", device="cuda",
           epochs=len(hist["T4"]["val_mae"]),
           **{f"final_val_mae_{gpu}": m for gpu, m in maes.items()},
           seconds=f"{secs:.2f}")
-    return counts
+    return counts, card, pred
 
 
 def phase_train(torch) -> None:
@@ -683,7 +698,7 @@ def phase_train(torch) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    phase("8/9 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
+    phase("8/10 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
           params=cfg.param_count(), losses=losses, step_ms=ms,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     del params, state
@@ -709,7 +724,7 @@ def train_danube(torch) -> None:
     losses = out["losses"]
     require(out["steps_done"] == 5 and not out["interrupted"]
             and all(math.isfinite(v) for v in losses), f"train.run {out}")
-    phase("8/9 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
+    phase("8/10 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
           batch=8, seq=64, params=cfg.param_count(), losses=losses,
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -754,7 +769,7 @@ def offline_step_breakdown(torch) -> None:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     n = cfg.param_count()
-    phase("8/9 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
+    phase("8/10 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
           batch=4, seq=32, step_ms=[t * 1e3 for t in step_s[1:]],
           grad_ms=[(t - u) * 1e3 for t, u in zip(step_s[1:], update_s[1:])],
           adamw_ms=[u * 1e3 for u in update_s[1:]],
@@ -798,7 +813,7 @@ def checkpoint_roundtrip(torch) -> None:
     require(at == 2 and len(pairs) == 4 * len(tree[0]) + 1 and all(
         y.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
         for x, y in pairs), "restored checkpoint differs")
-    phase("8/9 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
+    phase("8/10 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
           leaves=len(pairs), step=at, restored_to="cuda", equal="bitwise")
 
 
@@ -825,7 +840,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
         da._library(), dev, dtype, H, Hk, d))
     call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
-    phase("9/9 timing", kernel="decode_attention",
+    phase("9/10 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
           ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
           splits=ns, split_len=split_len)
@@ -850,7 +865,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     nbytes = (2 * B * kv_len * Hk * d + 2 * B * H * d) * item + 4 * B
     flops = 4 * B * H * kv_len * d
     bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
-    phase("9/9 timing", kernel="decode_attention",
+    phase("9/10 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{kv_len}",
           ms=ms, events_ms=events_ms, plain_ms=plain_ms,
           library_ms=library_ms, library_events_ms=library_events_ms,
@@ -878,7 +893,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             ptxas[f"wgmma_forward_{dp_bk}"] = (
                 f"regs:{r.get('registers')},spill_bytes:"
                 f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("9/9 timing", kernel="flash_attention", design="wgmma",
+    phase("9/10 timing", kernel="flash_attention", design="wgmma",
           bf16_tile=fa.tile_plan(d), **ptxas)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -905,7 +920,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
     flops = 4 * B * H * visible * d
     nbytes = (2 * B * Sq * H * d + 2 * B * Skv * Hk * d) * q.element_size()
     bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
-    phase("9/9 timing", kernel="flash_attention",
+    phase("9/10 timing", kernel="flash_attention",
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal", ms=ms,
           plain_ms=plain_ms, library_ms=library_ms,
           library_vs_kernel_max_abs_diff=f"{library_err:.3e}",
@@ -937,7 +952,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         ptxas[f"N{n}_L{lanes}"] = (
             f"regs:{r.get('registers')},spill_bytes:"
             f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("9/9 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
+    phase("9/10 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
     shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
@@ -948,7 +963,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
         events_ms = time_ms(torch, call)
         clock = sm_clock()
-        phase("9/9 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+        phase("9/10 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
               ms=events_ms, sm_clock_mhz=clock,
               graph_ms=graph_ms(torch, call))
     plan = ss.lane_plan(B, di, N,
@@ -967,7 +982,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("9/9 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+    phase("9/10 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
           channels_per_block=plan.channels, blocks=plan.blocks,
           busiest_sm_channels=plan.busiest,
           mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
@@ -982,6 +997,261 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
             "launches": launches["ssm_scan"], "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": None}
+
+
+# phase 10: the paper's deployment ("more than 20,000 GPUs") over
+# SimConfig's whole 12 h horizon (1,440 ticks, 48 scheduling rounds; uncut)
+FLEET = dict(n_devices=20000, horizon_s=12 * 3600.0, trace="B", tick_s=30.0,
+             schedule_interval_s=900.0, seed=0)
+# every branch of the tick core fires (tests/test_engine_xla.py:53's faults)
+FLEET_FAULTS = dict(n_devices=200, horizon_s=2 * 3600.0, trace="D", seed=11,
+                    device_mtbf_h=2.0, device_repair_s=300.0,
+                    error_rate_per_job_hour=1.0, graceful_exit=False)
+PREDICTOR_TOL = 1e-5                       # repro's predictor tolerance
+
+
+class Phases:
+    """Wall seconds by phase name, for `ClusterSim.attach_phases`."""
+
+    def __init__(self):
+        self.s: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str, exclude=()):
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t
+
+
+class TimedPredictor:
+    """The card predictor, timed: rows and ms of each call (the answer is
+    copied back to the host, so each call ends in a sync), and the rows of
+    every call, kept for the card-vs-CPU check."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.params_by_type = inner.params_by_type
+        self.calls: list[tuple[str, object, float]] = []
+
+    def predict(self, gpu_type, feats):
+        t = time.perf_counter()
+        out = self.inner.predict(gpu_type, feats)
+        self.calls.append((gpu_type, feats, (time.perf_counter() - t) * 1e3))
+        return out
+
+
+def fleet_hooks(timed: TimedPredictor):
+    """A SimHooks that marks where each scheduling round's predictor calls
+    end and counts the tick core's events (hooks never change results)."""
+    from repro_torch.core.simulator import SimHooks
+
+    class Hooks(SimHooks):
+        def __init__(self):
+            self.round_ends: list[int] = []
+            self.events: dict[str, int] = {}
+
+        def _count(self, key):
+            self.events[key] = self.events.get(key, 0) + 1
+
+        def on_schedule(self, sim, t, n_free, n_before, n_assigned, wall):
+            self.round_ends.append(len(timed.calls))
+
+        def on_device_fail(self, sim, t, device, until):
+            self._count("device_fail")
+
+        def on_error(self, sim, t, device, handled):
+            self._count("error_propagated" if handled.propagated
+                        else "error_contained")
+
+        def on_job_finish(self, sim, t, device, spec, jct, wall, progress):
+            self._count("finish")
+
+        def on_job_evict(self, sim, t, device, spec, reason, progress,
+                         checkpoint, requeued):
+            self._count(f"evict_{reason}")
+
+    return Hooks()
+
+
+def fleet_run(torch, policy, predictor, engine: str, **kw) -> dict:
+    """One `ClusterSim.run()` with its wall time, phase split and the
+    predictor's rows and card ms per scheduling round."""
+    import dataclasses
+
+    from repro_torch.core.simulator import ClusterSim, SimConfig
+    timed = TimedPredictor(predictor) if predictor is not None else None
+    hooks = fleet_hooks(timed) if timed is not None else None
+    sim = ClusterSim(SimConfig(policy=policy, engine=engine, **kw), timed,
+                     hooks=hooks)
+    phases = Phases()
+    sim.attach_phases(phases)
+    t = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n_ticks = int(kw["horizon_s"] / kw.get("tick_s", 30.0))
+    round_calls = []
+    if timed is not None:
+        start = 0
+        for end in hooks.round_ends:
+            round_calls.append(timed.calls[start:end])
+            start = end
+    lat = sim.schedule_latencies
+    return {"res": res, "json": json.dumps(dataclasses.asdict(res),
+                                           sort_keys=True),
+            "wall_s": wall, "ticks_per_s": n_ticks / wall,
+            "core_ms_per_tick": phases.s.get("dense_core", 0.0) * 1e3
+            / n_ticks, "phases_s": phases.s, "round_calls": round_calls,
+            "sched_s": lat, "sim": sim}
+
+
+def fleet_line(name: str, engine: str, run: dict, **extra) -> None:
+    r = run["res"]
+    lat = run["sched_s"]
+    rows = [sum(len(f) for _, f, _ in c) for c in run["round_calls"]]
+    ms = [sum(m for _, _, m in c) for c in run["round_calls"]]
+    fields = dict(
+        gpu_util=r.gpu_util, sm_activity=r.sm_activity, mem_used=r.mem_used,
+        oversold_gpu=r.oversold_gpu, avg_slowdown=r.avg_slowdown,
+        p99_latency_ms=r.p99_latency_ms, n_jobs=r.n_jobs,
+        n_finished=r.n_finished, evictions=r.evictions,
+        errors_propagated=r.errors_propagated,
+        wall_s=f"{run['wall_s']:.2f}",
+        ticks_per_s=f"{run['ticks_per_s']:.2f}",
+        core_ms_per_tick=f"{run['core_ms_per_tick']:.3f}")
+    if lat:
+        fields.update(rounds=len(lat),
+                      round_s_mean=f"{sum(lat) / len(lat):.3f}",
+                      round_s_max=f"{max(lat):.3f}")
+    if rows:
+        fields.update(predictor_rows_mean=f"{sum(rows) / len(rows):.1f}",
+                      predictor_rows_max=max(rows),
+                      predictor_ms_mean=f"{sum(ms) / len(ms):.3f}",
+                      predictor_ms_max=f"{max(ms):.3f}")
+    fields["phases_s"] = json.dumps({k: round(v, 3) for k, v in
+                                     sorted(run["phases_s"].items())})
+    phase(f"10/10 fleet.{name}", engine=engine, **fields, **extra)
+
+
+def engine_profile(torch, sim, ticks: int = 30) -> None:
+    """One block of the torch engine at the fleet's size, after its run's
+    results were taken, under torch.profiler: the block's wall time, the
+    card's busy time (kernels and copies) and its launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = sim._torch_engine()
+    t0 = sim.cfg.horizon_s
+    warm = [sim._tick_inputs(t0 + k * sim.cfg.tick_s) for k in range(ticks)]
+    eng.tick_block(warm)
+    t0 += ticks * sim.cfg.tick_s
+    inps = [sim._tick_inputs(t0 + k * sim.cfg.tick_s) for k in range(ticks)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.tick_block(inps)
+        wall_ms = (time.perf_counter() - t) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev if "memcpy" in e.name.lower()]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    copy_ms = sum(e.time_range.elapsed_us() for e in copies) / 1e3
+    fields = dict(ticks=ticks, wall_ms=f"{wall_ms:.2f}",
+                  wall_ms_per_tick=f"{wall_ms / ticks:.3f}")
+    if dev:
+        fields.update(device_busy_ms=f"{busy:.3f}",
+                      copy_ms=f"{copy_ms:.3f}",
+                      kernels=len(dev) - len(copies),
+                      kernels_per_tick=f"{(len(dev) - len(copies)) / ticks:.1f}",
+                      idle_share=f"{1.0 - busy / wall_ms:.3f}")
+    else:
+        fields.update(device_busy_ms="not measured (no device events)")
+    phase("10/10 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
+          **fields)
+
+
+def phase_fleet(torch, card_matrix, predictor) -> None:
+    """MuxFlow's scheduling step at 20,000 GPUs on the card's matrix and
+    predictor: numpy against torch engine byte for byte, the dedicated
+    baseline, the predictor on the card against the CPU, and a small fleet
+    under heavy faults in lockstep."""
+    import numpy as np
+
+    from repro_torch.core.predictor import SpeedPredictor
+    from repro_torch.core.simulator import ClusterSim, SimConfig
+    from repro_torch.profiling.calibrate import MeasuredMuxFlowPolicy
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    policy = MeasuredMuxFlowPolicy(matrix=card_matrix)
+    require(all(p[0]["w"].device.type == "cuda"
+                for p in predictor.params_by_type.values()),
+            "the predictor is not on the card")
+    runs = {engine: fleet_run(torch, policy, predictor, engine, **FLEET)
+            for engine in ("numpy", "torch")}
+    for engine, run in runs.items():
+        fleet_line("muxflow-measured", engine, run,
+                   device=("cuda" if engine == "torch" else "host"),
+                   n_devices=FLEET["n_devices"],
+                   horizon_h=FLEET["horizon_s"] / 3600.0,
+                   cut="none (SimConfig's whole 12 h)")
+    require(runs["numpy"]["json"] == runs["torch"]["json"],
+            "SimResults differ between the numpy and torch engines")
+    engine_profile(torch, runs["torch"]["sim"])
+    res = runs["numpy"]["res"]
+    require(res.n_finished > 0 and 0.0 < res.gpu_util <= 1.0
+            and math.isfinite(res.p99_latency_ms),
+            f"implausible fleet results {res}")
+    base = fleet_run(torch, "online-only", None, "numpy", **FLEET)
+    fleet_line("online-only", "numpy", base)
+    require(base["res"].oversold_gpu == 0.0
+            and base["res"].gpu_util < res.gpu_util,
+            "sharing did not raise utilization over the dedicated baseline")
+
+    # the card's predictions over one round's grid against the CPU's
+    calls = next(c for c in runs["torch"]["round_calls"] if c)
+    cpu = SpeedPredictor({t: [{k: v.cpu() for k, v in layer.items()}
+                              for layer in params]
+                          for t, params in predictor.params_by_type.items()})
+    err = max(float(np.abs(predictor.predict(t, f) - cpu.predict(t, f)).max())
+              for t, f, _ in calls)
+    require(err <= PREDICTOR_TOL,
+            f"card predictions off the CPU's by {err} > {PREDICTOR_TOL}")
+    phase("10/10 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
+          gpu_types=sorted({str(t) for t, _, _ in calls}), max_abs_err=err,
+          tol=PREDICTOR_TOL, matmul_precision=repr(
+              torch.get_float32_matmul_precision()),
+          allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+
+    # heavy faults: block mode byte-equal, then tick by tick in lockstep
+    faults = {engine: fleet_run(torch, policy, predictor, engine,
+                                **FLEET_FAULTS)
+              for engine in ("numpy", "torch")}
+    require(faults["numpy"]["json"] == faults["torch"]["json"],
+            "SimResults differ between engines under heavy faults")
+    sims = [ClusterSim(SimConfig(policy=policy, engine=engine,
+                                 **FLEET_FAULTS), predictor)
+            for engine in ("numpy", "torch")]
+    n_ticks = int(FLEET_FAULTS["horizon_s"] / 30.0)
+    ts = [0.0, 0.0]
+    for k in range(n_ticks):
+        ts = [sim.step(t) for sim, t in zip(sims, ts)]
+        a, b = sims
+        for f in ("has_job", "model_idx", "sm_share", "progress",
+                  "checkpoint", "wall", "duration", "failed_until",
+                  "outage_until"):
+            require(np.array_equal(getattr(a.state, f), getattr(b.state, f)),
+                    f"tick {k}: {f} differs between engines")
+        require(np.array_equal(a.monitor.state, b.monitor.state)
+                and np.array_equal(a.monitor._readmit_at,
+                                   b.monitor._readmit_at, equal_nan=True)
+                and np.array_equal(a.monitor._ol_times, b.monitor._ol_times),
+                f"tick {k}: the monitor differs between engines")
+    events = faults["torch"]["sim"].hooks.events
+    readmits = int((faults["torch"]["sim"].monitor._ol_ptr > 0).sum())
+    for key in ("device_fail", "error_propagated", "finish",
+                "evict_device_failure", "evict_error"):
+        require(events.get(key, 0) > 0, f"no {key} under heavy faults")
+    fleet_line("faults", "numpy==torch", faults["torch"], events=events,
+               overlimit_devices=readmits, lockstep_ticks=n_ticks)
 
 
 def main() -> int:
@@ -1004,12 +1274,13 @@ def main() -> int:
     phase_parity(torch)
     serve = phase_serve(torch)
     shared = phase_share(torch)
-    launches = phase_profile(torch)
+    launches, card_matrix, predictor = phase_profile(torch)
     launches["decode_attention"] += serve["decode_attention"] + shared
     missing = [name for name, n in launches.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
     phase_train(torch)
     kernels = phase_timing(torch, launches, max_err)
+    phase_fleet(torch, card_matrix, predictor)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,8 @@
 """Atomic, async-capable checkpoints of trees of tensors, copied from
-`repro/checkpoint/checkpointing.py` with the same layout.
+`repro/checkpoint/checkpointing.py`: the same directory layout and manifest
+format.  The two packages' train-state trees differ, though: the port keeps
+per-layer leaves in module order, `repro` stacks its `blocks` and sorts dict
+keys, so neither package can resume the other's run.
 
 Layout: <dir>/step_<N>/ with one `leaves.npz` (leaf_0, leaf_1, ... in tree
 order) and a JSON manifest (tree structure, shapes, dtypes, step).  Writes go
@@ -107,7 +110,8 @@ def restore(ckpt_dir: str, like_tree, *, step: int | None = None,
             device=None):
     """(tree, step): the checkpoint at `step` (the latest by default) in
     the structure of `like_tree`, its leaves on `device` (the CUDA card
-    unless `device="cpu"` is passed)."""
+    unless `device="cpu"` is passed).  Raises ValueError unless every leaf
+    has the shape and dtype of `like_tree`'s leaf in its place."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -120,6 +124,14 @@ def restore(ckpt_dir: str, like_tree, *, step: int | None = None,
     if len(leaves) != manifest["n_leaves"]:
         raise ValueError(f"tree structure changed: {len(leaves)} leaves, "
                          f"the checkpoint has {manifest['n_leaves']}")
+    # a leaf of another shape would broadcast into the live weight it is
+    # copied to, so every leaf must match like_tree's exactly
+    for i, (leaf, shape, dtype) in enumerate(zip(
+            leaves, manifest["shapes"], manifest["dtypes"])):
+        want = (list(leaf.shape), str(leaf.dtype).removeprefix("torch."))
+        if (shape, dtype) != want:
+            raise ValueError(f"leaf {i}: the checkpoint holds {dtype} "
+                             f"{shape}, the tree expects {want[1]} {want[0]}")
     out = []
     with np.load(os.path.join(path, "leaves.npz")) as data:
         for i, dtype in enumerate(manifest["dtypes"]):

@@ -5,17 +5,24 @@ with momentum SGD (the paper's optimizer), one model per GPU type.
 
 Parameters are `repro`'s layout, a list of {"w": (din, dout), "b": (dout,)}
 fp32 tensors, so `models.convert.mlp_from_jax` carries them across.  The
-memoizing `CachedSpeedPredictor` and the synthetic `make_dataset` /
-`build_speed_predictor` wait for the scheduler and the simulator.
+memoizing `CachedSpeedPredictor` (the scheduler's view of the predictor) and
+the synthetic `make_dataset` are copied from `repro` draw for draw.
+
+Predictions are fp32 on the device that holds the MLP; a card and the CPU
+sum in different orders, so their answers agree within 1e-5, not bitwise.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
 import torch
 
-from repro_torch.core.interference import WorkloadProfile
+from repro_torch import resolve_device
+from repro_torch.core.interference import (OFFLINE_MODEL_PROFILES,
+                                           WorkloadProfile, online_profile,
+                                           shared_performance)
 from repro_torch.optim.optimizer import MomentumSGD, MomentumSGDConfig
 
 N_FEATURES = 9  # on: util, sm_act, occ, time | off: util, sm_act, occ, time | sm%
@@ -99,6 +106,130 @@ class SpeedPredictor:
         return float(self.predict(gpu_type, pair_features(online, offline, sm_off)))
 
 
+class CachedSpeedPredictor:
+    """Bounded (LRU) memoizing wrapper around :class:`SpeedPredictor` for
+    the scheduler's repeated rounds.
+
+    With the paper's workloads a feature row is determined by the (online
+    service @ QPS, offline model, SM share) triple, and the same triples
+    recur every scheduling interval.  Rows are quantized to ``quantum`` (the
+    prediction is computed *on the quantized row*, so the cache is
+    self-consistent) and keyed per GPU type by their bytes.
+
+    Each call deduplicates its rows **vectorized** (``np.unique`` over the
+    byte rows) before touching the Python-level cache, so a 20 000-device
+    round costs a few hundred dict operations instead of one per
+    (device × model) pair — this is what keeps weight-grid construction off
+    the interpreter at paper scale.  Misses are batched into a single inner
+    predictor call.
+
+    The memo is a true LRU bounded by ``max_entries`` (hits refresh
+    recency, overflow evicts the least-recently-used row — the unbounded
+    growth the earlier clear-on-overflow scheme traded away is gone), and
+    ``stats()`` exposes hit/miss/eviction counters for telemetry snapshots.
+    """
+
+    def __init__(self, inner, quantum: float = 0.01,
+                 max_entries: int = 2_000_000):
+        self.inner = inner
+        self.quantum = float(quantum)
+        self.max_entries = int(max_entries)
+        self._cache: "collections.OrderedDict[tuple[str, bytes], float]" = \
+            collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    @property
+    def params_by_type(self):
+        return self.inner.params_by_type
+
+    def predict(self, gpu_type: str, feats: np.ndarray) -> np.ndarray:
+        feats = np.asarray(feats, np.float32)
+        squeeze = feats.ndim == 1
+        rows = feats.reshape(-1, feats.shape[-1])
+        if self.quantum > 0:
+            rows = (np.round(rows / self.quantum)
+                    * self.quantum).astype(np.float32)
+        rows = np.ascontiguousarray(rows)
+        # dedupe by row *bytes* (matches dict-key semantics: -0.0 != 0.0);
+        # a void view makes this one memcmp-argsort instead of the
+        # column-by-column lexsort np.unique(axis=0) would run
+        nbytes = rows.shape[-1] * rows.itemsize
+        voids = rows.view(np.dtype((np.void, nbytes))).reshape(-1)
+        uniq_v, inverse = np.unique(voids, return_inverse=True)
+        uniq_u8 = uniq_v.view(np.uint8).reshape(uniq_v.shape[0], nbytes)
+        uniq_rows = uniq_u8.view(np.float32)
+        cache = self._cache
+        uniq_vals = np.empty(uniq_rows.shape[0], np.float32)
+        miss_u: list[int] = []
+        keys = [(gpu_type, uniq_u8[i].tobytes())
+                for i in range(uniq_rows.shape[0])]
+        for i, key in enumerate(keys):
+            val = cache.get(key)
+            if val is None:
+                miss_u.append(i)
+            else:
+                cache.move_to_end(key)
+                uniq_vals[i] = val
+        n_miss = int(np.isin(inverse, miss_u).sum()) if miss_u else 0
+        self.misses += n_miss
+        self.hits += rows.shape[0] - n_miss
+        if miss_u:
+            mi = np.asarray(miss_u)
+            pred = np.asarray(self.inner.predict(gpu_type, uniq_rows[mi]),
+                              np.float32)
+            uniq_vals[mi] = pred
+            for i, p in zip(miss_u, pred):
+                cache[keys[i]] = float(p)
+            while len(cache) > self.max_entries:
+                cache.popitem(last=False)
+                self.evictions += 1
+        out = uniq_vals[inverse]
+        shaped = out.reshape(feats.shape[:-1])
+        return shaped[()] if squeeze else shaped
+
+    def predict_pair(self, gpu_type: str, online, offline, sm_off) -> float:
+        return float(self.predict(gpu_type,
+                                  pair_features(online, offline, sm_off)))
+
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def stats(self) -> dict:
+        """Deterministic counters for telemetry/report surfaces."""
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions, "entries": len(self._cache),
+                "hit_rate": self.hit_rate()}
+
+
+def make_dataset(rng: np.random.Generator, n: int = 2000,
+                 noise: float = 0.02) -> tuple[np.ndarray, np.ndarray]:
+    """Synthesize a profiling dataset from the interference model: random
+    (online service @ random QPS, offline model, sm%) triples with measured
+    (= modeled + measurement noise) shared throughput."""
+    feats, targets = [], []
+    services = list(("recommend", "translate", "vision"))
+    offline_names = list(OFFLINE_MODEL_PROFILES)
+    for _ in range(n):
+        svc = services[rng.integers(len(services))]
+        qps = float(rng.uniform(5.0, 190.0))
+        on = online_profile(svc, qps)
+        off = OFFLINE_MODEL_PROFILES[offline_names[rng.integers(len(offline_names))]]
+        # jitter the offline profile so the dataset covers a family, not 4 points
+        off = dataclasses.replace(
+            off,
+            sm_activity=float(np.clip(off.sm_activity * rng.uniform(0.8, 1.2), 0.05, 1.0)),
+            mem_bw=float(np.clip(off.mem_bw * rng.uniform(0.8, 1.2), 0.05, 1.0)),
+            exec_time_ms=off.exec_time_ms * float(rng.uniform(0.7, 1.4)))
+        sm = float(rng.uniform(0.05, 1.0))
+        _, tput = shared_performance(on, off, sm)
+        feats.append(pair_features(on, off, sm))
+        targets.append(tput + rng.normal(0.0, noise))
+    return np.stack(feats), np.clip(np.array(targets, np.float32), 0.0, 1.0)
+
+
 def train_predictor(generator: torch.Generator, feats: np.ndarray,
                     targets: np.ndarray, *, hidden: int = 64, layers: int = 4,
                     epochs: int = 200, batch_size: int = 128, lr: float = 0.05,
@@ -154,3 +285,22 @@ def train_predictor(generator: torch.Generator, feats: np.ndarray,
             history["val_mae"].append(
                 float(torch.mean(torch.abs(mlp_apply(params, xv) - yv))))
     return params, history
+
+
+def build_speed_predictor(gpu_types=("T4", "A10"), n: int = 2000,
+                          epochs: int = 120, seed: int = 0,
+                          device=None) -> SpeedPredictor:
+    """Train one MLP per GPU type on the synthetic dataset (A10 modeled as a
+    1.35x faster T4 with a different contention noise seed), on ``device``
+    (the CUDA card unless ``device="cpu"``).  The initial weights come from
+    a CPU generator seeded with ``seed + i``, so the card and the CPU start
+    from the same weights."""
+    dev = resolve_device(device)
+    params_by_type, histories = {}, {}
+    for i, t in enumerate(gpu_types):
+        rng = np.random.default_rng(seed + i)
+        feats, targets = make_dataset(rng, n=n)
+        params_by_type[t], histories[t] = train_predictor(
+            torch.Generator().manual_seed(seed + i), feats, targets,
+            epochs=epochs, seed=seed + i, device=dev)
+    return SpeedPredictor(params_by_type, histories)

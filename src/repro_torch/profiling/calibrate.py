@@ -8,14 +8,19 @@ speed matrix into a shared-performance provider and a trained predictor.
   * a measured predictor training set (:func:`make_measured_dataset`) and
     per-GPU-type trained MLPs (:func:`build_measured_predictor`), so the §5
     speed predictor trains on measurements.
+  * :class:`MeasuredMuxFlowPolicy` — MuxFlow scheduling (dynamic SM + KM
+    matching) with measured shared-performance and a measured-trained
+    predictor, registered as ``muxflow-measured``.
 
-`MeasuredMuxFlowPolicy`, its registration and `default_matrix`'s
-`REPRO_SPEED_MATRIX` variable wait for the policy package and the `sim`
-front door.
+The default matrix is built from the smoke suite on first use (on the CUDA
+card unless ``device="cpu"``) and memoized; set
+``REPRO_SPEED_MATRIX=/path/to/matrix.json`` to calibrate from a saved
+artifact instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -27,6 +32,25 @@ from repro_torch.core.predictor import (SpeedPredictor, pair_features,
 from repro_torch.profiling.matrix import SpeedMatrix
 
 _MATCH_KEYS = ("gpu_util", "sm_activity", "mem_bw")
+
+_DEFAULT_MATRICES: dict[tuple, SpeedMatrix] = {}
+
+
+def default_matrix(suite: str = "smoke", seed: int = 0,
+                   device=None) -> SpeedMatrix:
+    """The process-wide default matrix: ``$REPRO_SPEED_MATRIX`` if set,
+    otherwise built from the named suite on ``device`` (the CUDA card
+    unless ``device="cpu"``) once and memoized."""
+    path = os.environ.get("REPRO_SPEED_MATRIX")
+    if path:
+        return SpeedMatrix.load(path)
+    dev = resolve_device(device)
+    key = (suite, seed, str(dev))
+    if key not in _DEFAULT_MATRICES:
+        from repro_torch.profiling.harness import build_speed_matrix
+        _DEFAULT_MATRICES[key] = build_speed_matrix(suite, seed=seed,
+                                                    device=dev)
+    return _DEFAULT_MATRICES[key]
 
 
 def workload_profile(matrix: SpeedMatrix, name: str) -> WorkloadProfile:
@@ -175,3 +199,99 @@ def predict_share_curve(predictor, gpu_type: str, online: WorkloadProfile,
     out = np.empty_like(iso)
     out[order] = iso
     return out
+
+
+# ---------------------------------------------------------------------------
+# The calibrated policy
+# ---------------------------------------------------------------------------
+
+class MeasuredMuxFlowPolicy:
+    """MuxFlow scheduling with measured shared-performance.
+
+    Same dynamic-SM + KM-matching scheduling as ``muxflow``, but the
+    engine's per-tick ground truth comes from the profiled speed matrix via
+    :class:`MeasuredInterferenceProvider`, and the speed predictor it
+    schedules with trains on measured pairs.  With no matrix supplied the
+    smoke-suite default is built on ``device`` on first use (or loaded from
+    ``$REPRO_SPEED_MATRIX``).
+
+    (Declared as a :class:`~repro_torch.policies.base.SharingPolicy`
+    subclass at registration time — see the bottom of this module — to keep
+    this module's import graph one-directional into
+    ``repro_torch.policies.base``.)
+    """
+
+    name = "muxflow-measured"
+    description = ("MuxFlow with measured interference: speed matrix from "
+                   "executed workload pairs replaces the analytic "
+                   "contention model; predictor trains on measurements.")
+    needs_predictor = True
+    wants_scheduling = True
+
+    def __init__(self, matrix: SpeedMatrix | None = None,
+                 suite: str = "smoke", device=None):
+        self._matrix = matrix
+        self._pinned = matrix is not None     # explicit matrix wins over env
+        self._env_src: str | None = None
+        self._suite = suite
+        self._device = device
+        self._provider: MeasuredInterferenceProvider | None = None
+
+    @property
+    def matrix(self) -> SpeedMatrix:
+        if self._pinned:
+            return self._matrix
+        # the registry holds one process-wide instance, so the memo tracks
+        # $REPRO_SPEED_MATRIX: setting/changing/unsetting it between runs
+        # swaps the calibration source instead of keeping a stale matrix
+        src = os.environ.get("REPRO_SPEED_MATRIX")
+        if self._matrix is None or src != self._env_src:
+            self._env_src = src
+            self._matrix = default_matrix(self._suite, device=self._device)
+            self._provider = None
+        return self._matrix
+
+    @property
+    def provider(self) -> MeasuredInterferenceProvider:
+        matrix = self.matrix            # may invalidate self._provider
+        if self._provider is None:
+            self._provider = MeasuredInterferenceProvider(matrix)
+        return self._provider
+
+    def scheduler_config(self, shard_size: int = 256):
+        from repro_torch.core.scheduler import SchedulerConfig
+        return SchedulerConfig(use_dynamic_sm=True, use_matching=True,
+                               shard_size=shard_size)
+
+    def sm_shares(self, on, idx):
+        from repro_torch.core.dynamic_sm import dynamic_sm_array
+        return dynamic_sm_array(on["sm_activity"][idx])
+
+    def shared_performance(self, on, off, shares):
+        return self.provider(on, off, shares)
+
+    def build_predictor(self, gpu_types, *, samples: int = 2000,
+                        epochs: int = 120, seed: int = 0, device=None):
+        return build_measured_predictor(self.matrix, gpu_types, n=samples,
+                                        epochs=epochs, seed=seed,
+                                        device=device)
+
+
+def register_measured_policy():
+    """Idempotently register ``muxflow-measured`` (done on import of
+    :mod:`repro_torch.policies`).
+
+    The concrete registered class mixes :class:`MeasuredMuxFlowPolicy` over
+    ``SharingPolicy`` here, lazily, so importing this module never imports
+    the policy package back (one-directional import graph)."""
+    global MeasuredMuxFlowPolicy
+    from repro_torch.policies.base import SharingPolicy, register, resolve
+    if not issubclass(MeasuredMuxFlowPolicy, SharingPolicy):
+        MeasuredMuxFlowPolicy = type("MeasuredMuxFlowPolicy",
+                                     (MeasuredMuxFlowPolicy, SharingPolicy),
+                                     {"__doc__": MeasuredMuxFlowPolicy.__doc__})
+    try:
+        return resolve("muxflow-measured")
+    except ValueError:
+        return register(MeasuredMuxFlowPolicy(),
+                        aliases=("calibrated-muxflow",))

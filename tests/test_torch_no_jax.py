@@ -55,7 +55,10 @@ def test_every_module_imports_without_jax_or_repro():
         "       'profiling.harness', 'profiling.matrix',\n"
         "       'profiling.calibrate', 'configs.h2o_danube_1_8b',\n"
         "       'checkpoint.checkpointing', 'runtime.fault_tolerance',\n"
-        "       'launch.train')}\n"
+        "       'launch.train', 'core.simulator', 'core.engine_torch',\n"
+        "       'core.matching', 'core.scheduler', 'core.traces',\n"
+        "       'core.dynamic_sm', 'core.errors', 'policies',\n"
+        "       'policies.base', 'policies.builtin', 'policies.extra')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
@@ -66,21 +69,25 @@ def test_every_module_imports_without_jax_or_repro():
     assert int(proc.stdout.strip()) >= 35
 
 
-def test_entry_points_refuse_cpu_without_asking(tmp_path):
+def test_entry_points_refuse_cpu_without_asking(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     from repro_torch import resolve_device
     from repro_torch.checkpoint import restore, save
     from repro_torch.configs import get_config
+    from repro_torch.core.predictor import build_speed_predictor
+    from repro_torch.core.simulator import run_policy
     from repro_torch.launch.serve import run
     from repro_torch.launch.train import run as train_run
     from repro_torch.models import init_cache
     from repro_torch.models.convert import mlp_from_jax, params_from_jax
-    from repro_torch.profiling.calibrate import build_measured_predictor
+    from repro_torch.profiling.calibrate import (build_measured_predictor,
+                                                 default_matrix)
     from repro_torch.profiling.harness import (SUITES, PairProfiler,
                                                build_speed_matrix)
     from repro_torch.profiling.workloads import build_catalog, execute
     cfg = get_config("mistral-nemo-12b", smoke=True)
+    monkeypatch.delenv("REPRO_SPEED_MATRIX", raising=False)
     save(str(tmp_path), 1, [torch.zeros(1)])
     refused = [
         resolve_device,
@@ -97,6 +104,10 @@ def test_entry_points_refuse_cpu_without_asking(tmp_path):
         lambda: PairProfiler(SUITES["smoke"]),
         lambda: build_speed_matrix("smoke"),
         lambda: build_measured_predictor(None),
+        lambda: build_speed_predictor(n=10, epochs=1),
+        lambda: run_policy("time-sharing", n_devices=8, horizon_s=600.0,
+                           engine="torch"),
+        default_matrix,
     ]
     for fn in refused:
         with pytest.raises(RuntimeError, match="device='cpu'"):

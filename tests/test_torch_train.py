@@ -75,6 +75,22 @@ def test_restore_refuses_another_tree(tmp_path):
         restore(str(tmp_path / "none"), {}, device="cpu")
 
 
+def test_restore_refuses_a_leaf_of_another_shape_or_dtype(tmp_path):
+    """A (4,) leaf restored against a (3, 4) one would broadcast into every
+    row of the live weight; restore names the leaf instead."""
+    save(str(tmp_path), 1, {"a": torch.zeros(2), "w": torch.arange(4.0)})
+    with pytest.raises(ValueError, match=r"leaf 1: .*float32 \[4\].*\[3, 4\]"):
+        restore(str(tmp_path), {"a": torch.zeros(2), "w": torch.zeros(3, 4)},
+                device="cpu")
+    with pytest.raises(ValueError, match="leaf 1: .*bfloat16"):
+        restore(str(tmp_path), {"a": torch.zeros(2),
+                                "w": torch.zeros(4, dtype=torch.bfloat16)},
+                device="cpu")
+    out, _ = restore(str(tmp_path), {"a": torch.ones(2), "w": torch.ones(4)},
+                     device="cpu")
+    assert torch.equal(out["w"], torch.arange(4.0))
+
+
 def beat_history(mon_cls):
     """tests/test_infra.py:63-74's straggler and failure history."""
     hb = mon_cls(4, timeout_s=10.0, straggler_patience=3, now=0.0)
