@@ -10,36 +10,54 @@ Phases, one line each (or more); any failure raises and exits non-zero:
   3. kernels  each kernel against its plain PyTorch version run in fp32 on
               the same inputs, on the card: the test sweeps, the profiling
               catalog's shapes and full width (decode: mistral-nemo-12b at
-              B8/Skv4096 and h2o-danube-1.8b's d 80, G 4 at B8/Skv4096 and
-              at short caches; flash: mistral-nemo-12b prefill at S4096 and
-              h2o-danube-1.8b's window at S8192; ssm: jamba-1.5-large's
-              Mamba layer, di 16384, N 16, S4096);
+              B8/Skv4096, h2o-danube-1.8b's d 80, G 4 at B8/Skv4096 and at
+              short caches, h2o-danube-3-4b's d 120, G 4 and gemma-7b's
+              d 256, G 1 at B8/Skv4096; flash: mistral-nemo-12b prefill at
+              S4096, h2o-danube-1.8b's window at S8192, h2o-danube-3-4b's
+              d 120 window at S5120 and gemma-7b's d 256 at S2048; ssm:
+              jamba-1.5-large's Mamba layer, di 16384, N 16, S4096); and
+              phase 7's own decode calls (B1 and B2, caches of 1039, 2079
+              and 4096 rows) and prefills (mistral-nemo-12b B2 S2048,
+              gemma-7b S1024);
   4. parity   SMOKE configs in fp32, the model on the card (through the
-              kernel) against the same weights on the CPU (plain path):
+              kernels) against the same weights on the CPU (plain path):
               mistral-nemo-12b's decode logits and the serving engine's
               greedy tokens; then h2o-danube-1.8b's ring cache (window 16):
               40 decode steps at one position and 40 at ragged per-row
               positions, both past the window, and the engine's tokens;
+              xlstm-350m's decode logits and the engine's tokens under slot
+              reuse; then prefill logits and `greedy_generate` tokens for
+              all five ported architectures (prompts past the window);
   5. serve    mistral-nemo-12b FULL in bf16: `launch.serve.run` at batch 8,
-              kv_cap 4096, then a ServingEngine with 8 slots answering ragged
+              kv_cap 4096 (100 requests), then a ServingEngine with 8 slots answering ragged
               requests; the kernel's launch count must be 40 per decode step;
   6. share    h2o-danube-1.8b FULL in bf16: `launch.serve.run` at batch 8,
-              kv_cap 4096 (the ring), alone and then with `share=True`
+              kv_cap 4096 (the ring, 100 requests), alone and then with `share=True`
               (AdamW train steps of a second copy packed in by the
               multiplexer); 24 launches per decode step, at least one offline
               step, and the train step counter at offline steps + 2;
-  7. profile  MuxFlow's measurement loop on the card: the smoke suite's speed
+  7. generate `greedy_generate` in bf16 FULL, one model at a time:
+              mistral-nemo-12b (batch 2, a 2048-token prompt),
+              h2o-danube-3-4b (batch 1, 5120 tokens: past its 4096 window,
+              so decode runs on the ring the prefill aligned), gemma-7b
+              (batch 1, 1024 tokens) and xlstm-350m (batch 2, 512 tokens);
+              flash_attention once a layer in each dense prefill,
+              decode_attention once a layer a decode step, no kernel in the
+              mLSTM; prefill ms, decode ms a step, tokens/s and peak memory;
+              then `launch.serve.run("xlstm-350m", smoke=False)` alone and
+              with `share=True` (`repro`'s default workload at full width);
+  8. profile  MuxFlow's measurement loop on the card: the smoke suite's speed
               matrix (as `python -m repro_torch profile` builds it), schema
               clean and equal to the CPU-built matrix but for checksums,
               which agree within a stated tolerance; all three kernels must
               launch; then the measured speed predictor trained on the card;
-  8. train    three momentum-SGD steps of xlstm-350m FULL in bf16 (batch 2,
+  9. train    three momentum-SGD steps of xlstm-350m FULL in bf16 (batch 2,
               seq 512); five AdamW steps of h2o-danube-1.8b FULL in bf16
               through `launch.train.run` (batch 8, seq 64): finite losses,
               step time, peak memory; then a checkpoint of h2o-danube-1.8b
               SMOKE's weights and AdamW state saved and restored to the card,
               bit-equal;
-  9. timing   each kernel, its plain version and the library call that
+ 10. timing   each kernel, its plain version and the library call that
               computes the same function (where one exists), at full width;
               decode attention, whose call is about as short on the card
               as the host's per-call Python, as device time in a CUDA graph
@@ -47,7 +65,9 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               in a CUDA graph, the SM clock read after its timed loop, the
               lanes a channel `lane_plan` chose, ptxas's registers and
               spills for each template, and one line for each L it takes;
- 10. fleet    MuxFlow's scheduling step at the paper's 20,000 GPUs: phase 7's
+              then the attention kernels and SDPA at phase 7's new shapes
+              (d 120 and d 256), in CUDA graphs, each beside its bound;
+ 11. fleet    MuxFlow's scheduling step at the paper's 20,000 GPUs: phase 8's
               card matrix and card-trained predictor drive
               `run_policy(MeasuredMuxFlowPolicy(matrix=card_matrix), ...)`
               (trace B, 30 s ticks, a round every 900 s, seed 0, SimConfig's
@@ -60,7 +80,8 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               busy time and launches); then 200 devices under heavy faults,
               the torch engine in lockstep with numpy tick by tick and
               byte-equal SimResults.
-The line before the last is {"kernels": [...]}; the last line is
+Then one line of each phase's seconds.  The line before the last is
+{"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
 """
@@ -97,6 +118,19 @@ DANUBE_SHAPES = [
     (3, 16, 8, 2, 80, [1, 9, 16]),
     (4, 128, 32, 8, 80, [1, 17, 100, 128]),
 ]
+# (B, Skv, H, Hk, d, kv_len): h2o-danube-3-4b's decode (d 120, G 4: 240-byte
+# bf16 rows, the d <= 128 template with d below it) and gemma-7b's (d 256,
+# MHA), both at B8 on a 4096-row cache, ragged and full
+ZOO_DECODE = [(8, 4096, 32, 8, 120, RAGGED), (8, 4096, 32, 8, 120, 4096),
+              (8, 4096, 16, 16, 256, RAGGED), (8, 4096, 16, 16, 256, 4096)]
+# (B, Skv, H, Hk, d, kv_len): the decode calls of phase 7's generate runs, at
+# their own batch and cache (split_plan gives B1 and B2 many short splits and
+# a wide combine): h2o-danube-3-4b on its 4096-row ring, gemma-7b's 1024 +
+# 15 rows and mistral-nemo-12b's 2048 + 31, each at its first and last step
+GEN_DECODE = [(1, 4096, 32, 8, 120, 4096), (1, 4096, 32, 8, 120, 1001),
+              (1, 1039, 16, 16, 256, 1025), (1, 1039, 16, 16, 256, 1039),
+              (2, 2079, 32, 8, 128, [2049, 2049]),
+              (2, 2079, 32, 8, 128, [2079, 2064])]
 # (B, Sq, Skv, H, Hk, d, causal, window): tests/test_kernels.py:20-26, the
 # catalog's flash-prefill, ragged tiles at d 80, a window without causal, d 256
 FLASH_SHAPES = [
@@ -120,6 +154,11 @@ FLASH_SHAPES = [
 ]
 FLASH_MAIN = (1, 4096, 4096, 32, 8, 128, True, None)   # mistral-nemo-12b
 FLASH_DANUBE = (1, 8192, 8192, 32, 8, 80, True, 4096)  # h2o-danube-1.8b
+FLASH_DANUBE3 = (1, 5120, 5120, 32, 8, 120, True, 4096)  # h2o-danube-3-4b
+FLASH_GEMMA = (1, 2048, 2048, 16, 16, 256, True, None)   # gemma-7b
+# phase 7's prefills at their own shapes (h2o-danube-3-4b's is FLASH_DANUBE3)
+GEN_FLASH = [(2, 2048, 2048, 32, 8, 128, True, None),    # mistral-nemo-12b
+             (1, 1024, 1024, 16, 16, 256, True, None)]   # gemma-7b
 # (B, S, di, N): tests/test_kernels.py:58-62, the catalog's ssm-scan, ragged
 SSM_SHAPES = [(1, 64, 128, 16), (2, 128, 256, 16), (2, 96, 128, 8),
               (2, 64, 128, 8), (1, 100, 70, 4)]
@@ -145,6 +184,9 @@ EXTRA_SHAPES = [
     (4, 1024, 64, 8, 128, [1, 129, 1000, 1024]),
 ]
 SERVE_KV_LEN = 128          # a serving-path cache: capacity 4096, 128 rows
+# phases 5 and 6's `serve.run` requests (the run's default 200 cut to make
+# room for phase 7 within the script's time)
+SERVE_REQUESTS = 100
 
 
 class PhaseFailed(RuntimeError):
@@ -230,7 +272,7 @@ def phase_device(torch) -> str:
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     kind = torch.cuda.get_device_name(0)
-    phase("1/10 device", kind=repr(kind), count=torch.cuda.device_count(),
+    phase("1/11 device", kind=repr(kind), count=torch.cuda.device_count(),
           capability=torch.cuda.get_device_capability(0),
           torch=torch.__version__, cuda=torch.version.cuda)
     return kind
@@ -242,7 +284,7 @@ def phase_build() -> None:
     paths = _build.build(*_build.sources())
     for name in paths:
         _build.load(name)
-    phase("2/10 build", kernels=",".join(paths),
+    phase("2/11 build", kernels=",".join(paths),
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
@@ -269,9 +311,13 @@ def check_decode(torch) -> float:
     main_err = 0.0
     cases = [((MAIN["B"], MAIN["Skv"], MAIN["H"], MAIN["Hk"], MAIN["d"]), kv)
              for kv in (RAGGED, 3000)]
-    cases += [(s[:5], s[5]) for s in EXTRA_SHAPES + DANUBE_SHAPES]
+    cases += [(s[:5], s[5]) for s in EXTRA_SHAPES + DANUBE_SHAPES
+              + ZOO_DECODE + GEN_DECODE]
     catalog = {}                  # the profile path's decode-serve shape
     danube = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    zoo = {(d, dtype): 0.0 for d in (120, 256)
+           for dtype in (torch.float32, torch.bfloat16)}
+    generate = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for i, ((B, Skv, H, Hk, d), kv_len) in enumerate(cases):
@@ -295,15 +341,27 @@ def check_decode(torch) -> float:
                 catalog[str(dtype).split(".")[1]] = err
             if d == 80:
                 danube[dtype] = max(danube[dtype], err)
+            if (B, Skv, H, Hk, d, kv_len) in ZOO_DECODE:
+                zoo[(d, dtype)] = max(zoo[(d, dtype)], err)
+            if (B, Skv, H, Hk, d, kv_len) in GEN_DECODE:
+                generate[dtype] = max(generate[dtype], err)
             n += 1
     require(len(catalog) == 2, "the catalog's decode shape was not checked")
-    phase("3/10 kernels", kernel="decode_attention", cases=n,
+    phase("3/11 kernels", kernel="decode_attention", cases=n,
           max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
           max_abs_err_fp32=f"{worst[torch.float32]:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_fp32=f"{catalog['float32']:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_bf16=f"{catalog['bfloat16']:.3e}",
           max_abs_err_danube_d80_G4_bf16=f"{danube[torch.bfloat16]:.3e}",
           max_abs_err_danube_d80_G4_fp32=f"{danube[torch.float32]:.3e}",
+          **{f"max_abs_err_{name}_B8_Skv4096_{dt}": f"{zoo[(d, dtype)]:.3e}"
+             for name, d in (("danube3_d120_G4", 120), ("gemma_d256_G1", 256))
+             for dt, dtype in (("bf16", torch.bfloat16),
+                               ("fp32", torch.float32))},
+          max_abs_err_generate_B1_B2_d120_d256_d128_bf16=
+          f"{generate[torch.bfloat16]:.3e}",
+          max_abs_err_generate_B1_B2_d120_d256_d128_fp32=
+          f"{generate[torch.float32]:.3e}",
           tol="atol:2e-5,rtol:fp32=2e-5,bf16=2e-5+2**-8",
           against="plain_in_fp32")
     return main_err
@@ -322,7 +380,9 @@ def check_flash(torch) -> float:
     cases = [(s, dt) for s in FLASH_SHAPES
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(FLASH_MAIN, torch.bfloat16), (FLASH_MAIN, torch.float32),
-              (FLASH_DANUBE, torch.bfloat16)]
+              (FLASH_DANUBE, torch.bfloat16), (FLASH_DANUBE3, torch.bfloat16),
+              (FLASH_GEMMA, torch.bfloat16)]
+    cases += [(s, torch.bfloat16) for s in GEN_FLASH]
     errs = {}
     for shape, dtype in cases:
         B, Sq, Skv, H, Hk, d, causal, window = shape
@@ -344,12 +404,18 @@ def check_flash(torch) -> float:
         del q, big, k, v, out
     torch.cuda.empty_cache()
     small = [e for (s, _), e in errs.items() if s in FLASH_SHAPES]
-    phase("3/10 kernels", kernel="flash_attention", cases=len(errs),
+    phase("3/11 kernels", kernel="flash_attention", cases=len(errs),
           max_abs_err_sweep=f"{max(small):.3e}",
           max_abs_err_mistral_S4096_bf16=f"{errs[(FLASH_MAIN, 'bfloat16')]:.3e}",
           max_abs_err_mistral_S4096_fp32=f"{errs[(FLASH_MAIN, 'float32')]:.3e}",
           max_abs_err_danube_S8192_w4096_bf16=
           f"{errs[(FLASH_DANUBE, 'bfloat16')]:.3e}",
+          max_abs_err_danube3_S5120_d120_w4096_bf16=
+          f"{errs[(FLASH_DANUBE3, 'bfloat16')]:.3e}",
+          max_abs_err_gemma_S2048_d256_bf16=
+          f"{errs[(FLASH_GEMMA, 'bfloat16')]:.3e}",
+          max_abs_err_generate_mistral_B2_S2048_gemma_S1024_bf16=
+          f"{max(errs[(s, 'bfloat16')] for s in GEN_FLASH):.3e}",
           tol="atol:2e-5,rtol:fp32=2e-5,bf16=2e-5+2**-8",
           against="plain_in_fp32")
     return errs[(FLASH_MAIN, "bfloat16")]
@@ -402,7 +468,7 @@ def check_ssm(torch) -> float:
     sweep = {a: max(e for (s, k), e in errs.items()
                     if k == a and s != SSM_MAIN)
              for a in ("shared", "per_channel")}
-    phase("3/10 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+    phase("3/11 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
           lanes="1,2,4",
           max_abs_err_sweep=f"{sweep['shared']:.3e}",
           max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
@@ -418,7 +484,7 @@ def phase_parity(torch) -> None:
     import numpy as np
     mistral = parity(torch, "mistral-nemo-12b", [np.array([0, 3, 10, 40])],
                      steps=6, prompt=(2, 9), new=(2, 6))
-    phase("4/10 parity", config="mistral-nemo-12b/SMOKE/fp32",
+    phase("4/11 parity", config="mistral-nemo-12b/SMOKE/fp32",
           logits_max_abs_err=f"{mistral:.3e}", tol="1e-4",
           engine_tokens="equal")
     # one position for every row, then ragged per-row positions: 40 steps
@@ -427,10 +493,56 @@ def phase_parity(torch) -> None:
     danube = parity(torch, "h2o-danube-1.8b",
                     [np.zeros(4, np.int64), np.array([0, 5, 11, 30])],
                     steps=40, prompt=(10, 21), new=(8, 14))
-    phase("4/10 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
+    phase("4/11 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
           cache_rows=16, steps="40_scalar_pos+40_ragged_pos",
           logits_max_abs_err=f"{danube:.3e}", tol="1e-4",
           engine_tokens="equal")
+    # the mLSTM state in place of a KV cache (positions are ignored); the
+    # engine's six requests through three slots reuse slots (F5)
+    xlstm = parity(torch, "xlstm-350m", [np.zeros(4, np.int64)], steps=20,
+                   prompt=(2, 9), new=(2, 6))
+    phase("4/11 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
+          logits_max_abs_err=f"{xlstm:.3e}", tol="1e-4",
+          engine_tokens="equal_under_slot_reuse")
+    for arch in GENERATE_PARITY:
+        err = generate_parity(torch, arch)
+        phase("4/11 parity.generate", config=f"{arch}/SMOKE/fp32",
+              batch=2, prompt=21, steps=12,
+              prefill_logits_max_abs_err=f"{err:.3e}", tol="1e-4",
+              greedy_tokens="equal")
+
+
+# every ported architecture; a 21-token prompt is past the SMOKE window of
+# 16 of both h2o-danube models
+GENERATE_PARITY = ["mistral-nemo-12b", "h2o-danube-1.8b", "h2o-danube-3-4b",
+                   "gemma-7b", "xlstm-350m"]
+
+
+def generate_parity(torch, arch: str) -> float:
+    """`arch` SMOKE in fp32, one set of weights on the card and on the CPU:
+    the prefill's last-token logits (limit 1e-4) and `greedy_generate`'s
+    tokens over 12 steps, which must be equal.  Returns the logits' max abs
+    error."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import greedy_generate, init_params, make_prefill
+    cfg = get_config(arch, smoke=True, dtype=torch.float32)
+    cpu = init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 21)))
+    want, _ = make_prefill(cfg)(cpu, {"tokens": toks})
+    got, _ = make_prefill(cfg)(gpu, {"tokens": toks.cuda()})
+    err = compare(torch, got.cpu(), want, 1e-4, 1e-4)
+    card = greedy_generate(cfg, gpu, {"tokens": toks.cuda()}, 12).cpu()
+    host = greedy_generate(cfg, cpu, {"tokens": toks}, 12)
+    require(torch.equal(card, host),
+            f"{arch}: greedy tokens differ: card {card.tolist()} vs CPU "
+            f"{host.tolist()}")
+    return err
 
 
 def parity(torch, arch: str, starts: list, steps: int, prompt: tuple,
@@ -501,12 +613,12 @@ def phase_serve(torch) -> dict:
     da.launches = 0
     t = time.perf_counter()
     res = run("mistral-nemo-12b", smoke=False, batch=8, kv_cap=4096,
-              device="cuda")
+              requests=SERVE_REQUESTS, device="cuda")
     wall = time.perf_counter() - t
     run_launches = da.launches
     require(run_launches == cfg.num_layers * res["decode_steps"],
             f"run: {run_launches} launches for {res['decode_steps']} steps")
-    phase("5/10 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+    phase("5/11 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
           p99_ms=res["p99_ms"], served=res["served"],
           decode_steps=res["decode_steps"], launches=run_launches,
           wall_s=f"{wall:.1f}")
@@ -541,7 +653,7 @@ def phase_serve(torch) -> dict:
                                        device="cuda"), 100)
     require(tuple(logits.shape) == (8, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    phase("5/10 serve.engine", requests=len(reqs), decode_steps=eng.steps,
+    phase("5/11 serve.engine", requests=len(reqs), decode_steps=eng.steps,
           new_tokens=new, tokens_per_s=f"{new / wall:.1f}",
           wall_s=f"{wall:.2f}", launches=eng_launches,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -563,7 +675,7 @@ def phase_share(torch) -> int:
     cfg = get_config("h2o-danube-1.8b", smoke=False)
     require(cfg.num_layers == 24 and cfg.d_model == 2560
             and cfg.window == 4096, "not h2o-danube-1.8b FULL")
-    requests, total = 200, 0
+    requests, total = SERVE_REQUESTS, 0
     for share in (False, True):
         gc.collect()
         torch.cuda.empty_cache()
@@ -591,7 +703,7 @@ def phase_share(torch) -> int:
         off_ms = (res["oversold"] * horizon / res["offline_steps"] * 1e3
                   if share else None)
         # the SLO guard's eviction ends the run early: fewer served
-        phase("6/10 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
+        phase("6/11 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=requests,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -604,6 +716,108 @@ def phase_share(torch) -> int:
               wall_s=f"{wall:.1f}")
     gc.collect()
     torch.cuda.empty_cache()
+    return total
+
+
+# (arch, batch, prompt tokens, decode steps): each run gives steps + 1 new
+# tokens, the first from the prefill's logits
+GENERATE = [("mistral-nemo-12b", 2, 2048, 31), ("h2o-danube-3-4b", 1, 5120, 31),
+            ("gemma-7b", 1, 1024, 15), ("xlstm-350m", 2, 512, 31)]
+
+
+def phase_generate(torch) -> dict:
+    """This slice's main path: prefill and greedy generation at full width,
+    then `repro`'s default serve workload (xlstm-350m FULL), alone and
+    shared.  Returns the kernels' launch counts of these runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.launch.serve import run
+    from repro_torch.models import greedy_generate, init_params, make_prefill
+    total = {"decode_attention": 0, "flash_attention": 0}
+    for arch, B, S0, steps in GENERATE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch, smoke=False)
+        dense = cfg.pattern == (("attn", "dense"),)
+        params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (B, S0), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1))}
+        # the prefill alone, a warm-up and then timed; its launches are
+        # not the main path's (the counts are set to 0 below)
+        prefill = make_prefill(cfg)
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        require(tuple(logits.shape) == (B, cfg.padded_vocab)
+                and bool(torch.isfinite(logits).all()),
+                f"{arch}: bad prefill logits")
+        rows = {k: tuple(v.shape) for k, v in cache[0].items()}
+        del logits, cache
+        da.launches = fa.launches = ss.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = greedy_generate(cfg, params, batch, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = {"flash_attention": fa.launches, "decode_attention": da.launches}
+        want = ({"flash_attention": cfg.num_layers,
+                 "decode_attention": cfg.num_layers * steps} if dense else
+                {"flash_attention": 0, "decode_attention": 0})
+        require(n == want and ss.launches == 0,
+                f"{arch}: launches {n}, ssm_scan {ss.launches}; want {want}")
+        require(tuple(out.shape) == (B, steps + 1) and bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"{arch}: generated ids of the wrong shape or outside the "
+            "vocabulary")
+        for k in total:
+            total[k] += n[k]
+        phase("7/11 generate", config=f"{arch}/FULL/bf16", batch=B,
+              prompt=S0, decode_steps=steps, new_tokens=B * (steps + 1),
+              prefill_ms=f"{prefill_ms:.2f}",
+              decode_ms_per_step=f"{(wall * 1e3 - prefill_ms) / steps:.2f}",
+              tokens_per_s=f"{B * (steps + 1) / wall:.1f}",
+              wall_s=f"{wall:.2f}", launches=n, prefill_cache=rows,
+              peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        del params, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("xlstm-350m", smoke=False)
+    for share in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        da.launches = fa.launches = ss.launches = 0
+        t = time.perf_counter()
+        res = run("xlstm-350m", smoke=False, share=share)
+        wall = time.perf_counter() - t
+        require(da.launches == fa.launches == ss.launches == 0,
+                "a kernel launched on the mLSTM serve path")
+        require(res["served"] >= 1 and res["decode_steps"] >= 6,
+                f"share={share}: nothing served")
+        if share:
+            require(res["offline_steps"] >= 1, "no offline step ran")
+            require(res["train_steps_done"] == res["offline_steps"] + 2,
+                    f"train steps {res['train_steps_done']} for "
+                    f"{res['offline_steps']} offline steps")
+        phase("7/11 generate.serve", config="xlstm-350m/FULL/bf16",
+              share=share, batch=4, requests=200, base_ms=res["base_ms"],
+              p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
+              served=res["served"], evicted=res["served"] < 200,
+              offline_steps=res["offline_steps"],
+              offline_duty=res["offline_duty"], oversold=res["oversold"],
+              train_steps_done=res["train_steps_done"],
+              decode_steps=res["decode_steps"], launches=0,
+              params=cfg.param_count(),
+              peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+              wall_s=f"{wall:.1f}")
+        gc.collect()
+        torch.cuda.empty_cache()
     return total
 
 
@@ -645,13 +859,13 @@ def phase_profile(torch) -> tuple[dict, object, object]:
         atol, rtol = CHECKSUM_TOL[name]
         require(abs(g - w) <= atol + rtol * abs(w),
                 f"{name}: checksum {g} on the card, {w} on the CPU")
-        phase("7/10 profile.exec", workload=name, device="cuda",
+        phase("8/11 profile.exec", workload=name, device="cuda",
               steps=rec.steps_executed,
               wall_ms_per_step=rec.wall_ms_per_step, checksum_card=g,
               checksum_cpu=w, tol=f"atol:{atol},rtol:{rtol}")
     require(got == want, "the card's matrix differs from the CPU-built one "
             "in a field other than the checksums")
-    phase("7/10 profile", suite="smoke", seed=0, pairs=len(card.pairs),
+    phase("8/11 profile", suite="smoke", seed=0, pairs=len(card.pairs),
           cells=sum(len(p["shares"]) for p in card.pairs), schema="clean",
           matrix="equal_to_cpu_but_checksums", launches=counts,
           wall_s=f"{wall:.2f}", cpu_matrix_s=f"{cpu_s:.2f}")
@@ -666,7 +880,7 @@ def phase_profile(torch) -> tuple[dict, object, object]:
             f"bad validation MAE {maes}")
     require(all(p[0]["w"].device.type == "cuda"
                 for p in pred.params_by_type.values()), "predictor not on card")
-    phase("7/10 profile.predictor", device="cuda",
+    phase("8/11 profile.predictor", device="cuda",
           epochs=len(hist["T4"]["val_mae"]),
           **{f"final_val_mae_{gpu}": m for gpu, m in maes.items()},
           seconds=f"{secs:.2f}")
@@ -698,7 +912,7 @@ def phase_train(torch) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    phase("8/10 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
+    phase("9/11 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
           params=cfg.param_count(), losses=losses, step_ms=ms,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     del params, state
@@ -724,7 +938,7 @@ def train_danube(torch) -> None:
     losses = out["losses"]
     require(out["steps_done"] == 5 and not out["interrupted"]
             and all(math.isfinite(v) for v in losses), f"train.run {out}")
-    phase("8/10 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
+    phase("9/11 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
           batch=8, seq=64, params=cfg.param_count(), losses=losses,
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -769,7 +983,7 @@ def offline_step_breakdown(torch) -> None:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     n = cfg.param_count()
-    phase("8/10 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
+    phase("9/11 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
           batch=4, seq=32, step_ms=[t * 1e3 for t in step_s[1:]],
           grad_ms=[(t - u) * 1e3 for t, u in zip(step_s[1:], update_s[1:])],
           adamw_ms=[u * 1e3 for u in update_s[1:]],
@@ -813,7 +1027,7 @@ def checkpoint_roundtrip(torch) -> None:
     require(at == 2 and len(pairs) == 4 * len(tree[0]) + 1 and all(
         y.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
         for x, y in pairs), "restored checkpoint differs")
-    phase("8/10 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
+    phase("9/11 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
           leaves=len(pairs), step=at, restored_to="cuda", equal="bitwise")
 
 
@@ -823,54 +1037,73 @@ def phase_timing(torch, launches: dict, max_err: dict) -> list:
             time_ssm(torch, launches, max_err["ssm_scan"])]
 
 
-def time_decode(torch, launches: dict, max_err: float) -> dict:
+def decode_inputs(torch, gen, B: int, Skv: int, H: int, Hk: int, d: int):
+    """bf16 q and caches on the card, every row's cache full; SDPA on the
+    same inputs (a yardstick only, never called by the port: GQA by
+    `enable_gqa`, the lengths as a boolean mask); the bound.  Returns
+    (q, k, v, lens, sdpa, bound_ms, bound_by)."""
     import torch.nn.functional as F
-
-    from repro_torch.kernels import decode_attention as da
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    B, Skv, H, Hk, d = (MAIN[k] for k in ("B", "Skv", "H", "Hk", "d"))
-    dtype = torch.bfloat16
+    dev, dtype = gen.device, torch.bfloat16
     q = torch.randn(B, 1, H, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, Skv, Hk, d, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, Skv, Hk, d, generator=gen, device=dev).to(dtype)
-    saved = da.launches
-    # a serving-path cache first: capacity Skv, SERVE_KV_LEN rows live
-    short = torch.full((B,), SERVE_KV_LEN, dtype=torch.int32, device=dev)
-    ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
-        da._library(), dev, dtype, H, Hk, d))
-    call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
-    phase("9/10 timing", kernel="decode_attention",
-          shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
-          ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
-          splits=ns, split_len=split_len)
-    kv_len = Skv                                  # the full cache
-    lens = torch.full((B,), kv_len, dtype=torch.int32, device=dev)
-    # a call is about as short on the card as the host's Python per call,
-    # so the kernel and the library call are timed in CUDA graphs (device
-    # time); events around calls one after another are printed beside
-    call = lambda: da.decode_attention_cuda(q, k, v, lens)  # noqa: E731
-    ms, events_ms = graph_ms(torch, call), time_ms(torch, call)
-    plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lens))
-    da.launches = saved                  # launches to time do not count
-    # yardstick only, never called by the port: one SDPA call, GQA, masked
+    lens = torch.full((B,), Skv, dtype=torch.int32, device=dev)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = (torch.arange(Skv, device=dev)[None] < lens[:, None])[:, None, None]
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    nbytes = (2 * B * Skv * Hk * d + 2 * B * H * d) * q.element_size() + 4 * B
+    bound_ms, by = bound(nbytes, {"bf16": (4 * B * H * Skv * d,
+                                           PEAK_FLOPS["bfloat16"])})
+    return q, k, v, lens, sdpa, bound_ms, by
+
+
+def time_decode(torch, launches: dict, max_err: float) -> dict:
+    from repro_torch.kernels import decode_attention as da
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, Skv, H, Hk, d = (MAIN[k] for k in ("B", "Skv", "H", "Hk", "d"))
+    q, k, v, lens, sdpa, bound_ms, by = decode_inputs(torch, gen, B, Skv, H,
+                                                      Hk, d)
+    saved = da.launches
+    # a serving-path cache first: capacity Skv, SERVE_KV_LEN rows live
+    short = torch.full((B,), SERVE_KV_LEN, dtype=torch.int32, device=dev)
+    ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
+        da._library(), dev, q.dtype, H, Hk, d))
+    call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
+    phase("10/11 timing", kernel="decode_attention",
+          shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
+          ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
+          splits=ns, split_len=split_len)
+    # the full cache.  A call is about as short on the card as the host's
+    # Python per call, so the kernel and the library call are timed in CUDA
+    # graphs (device time); events around calls one after another are
+    # printed beside
+    call = lambda: da.decode_attention_cuda(q, k, v, lens)  # noqa: E731
+    ms, events_ms = graph_ms(torch, call), time_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v, lens))
     library_err = float((sdpa().transpose(1, 2).float() - da.decode_attention_plain(
         q, k, v, lens).float()).abs().max())
     library_ms, library_events_ms = graph_ms(torch, sdpa), time_ms(torch, sdpa)
-    item = q.element_size()
-    nbytes = (2 * B * kv_len * Hk * d + 2 * B * H * d) * item + 4 * B
-    flops = 4 * B * H * kv_len * d
-    bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
-    phase("9/10 timing", kernel="decode_attention",
-          shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{kv_len}",
+    phase("10/11 timing", kernel="decode_attention",
+          shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
           ms=ms, events_ms=events_ms, plain_ms=plain_ms,
           library_ms=library_ms, library_events_ms=library_events_ms,
           library_max_abs_err=f"{library_err:.3e}", bound_ms=bound_ms,
           bound_by=by)
+    # the head widths the generate phase added, in CUDA graphs
+    for name, (b, skv, h, hk, dh, _) in (("danube3", ZOO_DECODE[1]),
+                                         ("gemma", ZOO_DECODE[3])):
+        q2, k2, v2, lens2, sdpa2, bound2, by2 = decode_inputs(
+            torch, gen, b, skv, h, hk, dh)
+        phase("10/11 timing", kernel="decode_attention", model=name,
+              shape=f"B{b}_Skv{skv}_H{h}_Hk{hk}_d{dh}_bf16_kvlen{skv}",
+              graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
+                  q2, k2, v2, lens2)),
+              library_graph_ms=graph_ms(torch, sdpa2), bound_ms=bound2,
+              bound_by=by2)
+        del q2, k2, v2
+    da.launches = saved                  # launches to time do not count
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:63",
@@ -879,9 +1112,36 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
             "bound_by": by, "library_ms": library_ms}
 
 
-def time_flash(torch, launches: dict, max_err: float) -> dict:
+def flash_inputs(torch, gen, shape: tuple):
+    """bf16 q, k, v on the card for a FLASH_* shape (causal); SDPA on the
+    same inputs (a yardstick only: GQA by `enable_gqa`, a window as a
+    boolean mask); the bound over the (query, key) pairs the masks leave.
+    Returns (q, k, v, sdpa, bound_ms, bound_by, flops, nbytes)."""
     import torch.nn.functional as F
+    B, Sq, Skv, H, Hk, d, causal, window = shape
+    dev, dtype = gen.device, torch.bfloat16
+    q = torch.randn(B, Sq, H, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Skv, Hk, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Skv, Hk, d, generator=gen, device=dev).to(dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window is None:
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        i = torch.arange(Sq, device=dev)[:, None]
+        j = torch.arange(Skv, device=dev)[None]
+        mask = (j <= i) & (j > i - window)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    # query row i sees keys max(0, i - window + 1)..i
+    visible = sum(min(i + 1, window or Skv) for i in range(Sq))
+    flops = 4 * B * H * visible * d
+    nbytes = (2 * B * Sq * H * d + 2 * B * Skv * Hk * d) * q.element_size()
+    bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
+    return q, k, v, sdpa, bound_ms, by, flops, nbytes
 
+
+def time_flash(torch, launches: dict, max_err: float) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Skv, H, Hk, d, causal, window = FLASH_MAIN
@@ -893,38 +1153,41 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             ptxas[f"wgmma_forward_{dp_bk}"] = (
                 f"regs:{r.get('registers')},spill_bytes:"
                 f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("9/10 timing", kernel="flash_attention", design="wgmma",
+    phase("10/11 timing", kernel="flash_attention", design="wgmma",
           bf16_tile=fa.tile_plan(d), **ptxas)
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(4)
-    dtype = torch.bfloat16
-    q = torch.randn(B, Sq, H, d, generator=gen, device=dev).to(dtype)
-    k = torch.randn(B, Skv, Hk, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(B, Skv, Hk, d, generator=gen, device=dev).to(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, sdpa, bound_ms, by, flops, nbytes = flash_inputs(torch, gen,
+                                                              FLASH_MAIN)
     saved = fa.launches
     ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
                                                         causal=causal))
     plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
         q, k, v, causal=causal), iters=3, warmup=1)
-    fa.launches = saved                  # launches to time do not count
-    # yardstick only, never called by the port: one SDPA call, causal, GQA
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
     library_err = float((sdpa().transpose(1, 2).float() - fa.flash_attention_cuda(
         q, k, v, causal=causal).float()).abs().max())
-    fa.launches = saved
     library_ms = time_ms(torch, sdpa)
-    # the pairs the causal mask leaves: query row i sees keys 0..i
-    visible = sum(min(i + 1, Skv) for i in range(Sq))
-    flops = 4 * B * H * visible * d
-    nbytes = (2 * B * Sq * H * d + 2 * B * Skv * Hk * d) * q.element_size()
-    bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
-    phase("9/10 timing", kernel="flash_attention",
+    phase("10/11 timing", kernel="flash_attention",
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal", ms=ms,
           plain_ms=plain_ms, library_ms=library_ms,
           library_vs_kernel_max_abs_diff=f"{library_err:.3e}",
           bound_ms=bound_ms, bound_by=by, flops=flops, bytes=nbytes)
+    del q, k, v
+    # the generate phase's new prefill shapes, in CUDA graphs
+    for name, shape in (("danube3", FLASH_DANUBE3), ("gemma", FLASH_GEMMA)):
+        q2, k2, v2, sdpa2, bound2, by2, flops2, nbytes2 = flash_inputs(
+            torch, gen, shape)
+        B2, Sq2, _, H2, Hk2, d2, _, window2 = shape
+        phase("10/11 timing", kernel="flash_attention", model=name,
+              shape=f"B{B2}_S{Sq2}_H{H2}_Hk{Hk2}_d{d2}_bf16_causal"
+              + (f"_w{window2}" if window2 else ""),
+              bf16_tile=fa.tile_plan(d2), graph_ms=graph_ms(
+                  torch, lambda: fa.flash_attention_cuda(
+                      q2, k2, v2, causal=True, window=window2)),
+              library_graph_ms=graph_ms(torch, sdpa2), bound_ms=bound2,
+              bound_by=by2, flops=flops2, bytes=nbytes2)
+        del q2, k2, v2
+    fa.launches = saved                  # launches to time do not count
+    torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:71",
@@ -952,7 +1215,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         ptxas[f"N{n}_L{lanes}"] = (
             f"regs:{r.get('registers')},spill_bytes:"
             f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("9/10 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
+    phase("10/11 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
     shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
@@ -963,7 +1226,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
         events_ms = time_ms(torch, call)
         clock = sm_clock()
-        phase("9/10 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+        phase("10/11 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
               ms=events_ms, sm_clock_mhz=clock,
               graph_ms=graph_ms(torch, call))
     plan = ss.lane_plan(B, di, N,
@@ -982,7 +1245,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("9/10 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+    phase("10/11 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
           channels_per_block=plan.channels, blocks=plan.blocks,
           busiest_sm_channels=plan.busiest,
           mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
@@ -999,7 +1262,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
             "bound_by": by, "library_ms": None}
 
 
-# phase 10: the paper's deployment ("more than 20,000 GPUs") over
+# phase 11: the paper's deployment ("more than 20,000 GPUs") over
 # SimConfig's whole 12 h horizon (1,440 ticks, 48 scheduling rounds; uncut)
 FLEET = dict(n_devices=20000, horizon_s=12 * 3600.0, trace="B", tick_s=30.0,
              schedule_interval_s=900.0, seed=0)
@@ -1132,7 +1395,7 @@ def fleet_line(name: str, engine: str, run: dict, **extra) -> None:
                       predictor_ms_max=f"{max(ms):.3f}")
     fields["phases_s"] = json.dumps({k: round(v, 3) for k, v in
                                      sorted(run["phases_s"].items())})
-    phase(f"10/10 fleet.{name}", engine=engine, **fields, **extra)
+    phase(f"11/11 fleet.{name}", engine=engine, **fields, **extra)
 
 
 def engine_profile(torch, sim, ticks: int = 30) -> None:
@@ -1166,7 +1429,7 @@ def engine_profile(torch, sim, ticks: int = 30) -> None:
                       idle_share=f"{1.0 - busy / wall_ms:.3f}")
     else:
         fields.update(device_busy_ms="not measured (no device events)")
-    phase("10/10 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
+    phase("11/11 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
           **fields)
 
 
@@ -1215,7 +1478,7 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
               for t, f, _ in calls)
     require(err <= PREDICTOR_TOL,
             f"card predictions off the CPU's by {err} > {PREDICTOR_TOL}")
-    phase("10/10 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
+    phase("11/11 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
           gpu_types=sorted({str(t) for t, _, _ in calls}), max_abs_err=err,
           tol=PREDICTOR_TOL, matmul_precision=repr(
               torch.get_float32_matmul_precision()),
@@ -1268,19 +1531,31 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    kind = phase_device(torch)
-    phase_build()
-    max_err = phase_kernels(torch)
-    phase_parity(torch)
-    serve = phase_serve(torch)
-    shared = phase_share(torch)
-    launches, card_matrix, predictor = phase_profile(torch)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    kind = timed("device", phase_device, torch)
+    timed("build", phase_build)
+    max_err = timed("kernels", phase_kernels, torch)
+    timed("parity", phase_parity, torch)
+    serve = timed("serve", phase_serve, torch)
+    shared = timed("share", phase_share, torch)
+    generated = timed("generate", phase_generate, torch)
+    launches, card_matrix, predictor = timed("profile", phase_profile, torch)
     launches["decode_attention"] += serve["decode_attention"] + shared
+    for name, n in generated.items():
+        launches[name] += n
     missing = [name for name, n in launches.items() if n == 0]
     require(not missing, f"kernels never launched on the main path: {missing}")
-    phase_train(torch)
-    kernels = phase_timing(torch, launches, max_err)
-    phase_fleet(torch, card_matrix, predictor)
+    timed("train", phase_train, torch)
+    kernels = timed("timing", phase_timing, torch, launches, max_err)
+    timed("fleet", phase_fleet, torch, card_matrix, predictor)
+    phase("seconds", **seconds, total=f"{sum(seconds.values()):.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,6 +23,8 @@ ARCH_IDS = [
 
 PORTED = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "gemma-7b": "gemma_7b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "xlstm-350m": "xlstm_350m",
 }

@@ -3,8 +3,11 @@ the multiplexer, optionally space-shared with an offline AdamW train step of
 a second copy of the same architecture (`--share`).  Port of
 `repro/launch/serve.py`.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
-      --no-smoke --share
+  PYTHONPATH=src python -m repro_torch.launch.serve [--arch xlstm-350m] \
+      [--no-smoke] [--share] [--device cpu]
+
+The default architecture is `repro`'s, xlstm-350m (the mLSTM pattern, whose
+decode state is updated in place); every ported architecture can be served.
 
 `--smoke/--no-smoke` chooses the SMOKE or the FULL config; `repro`'s parser
 declared `--smoke` as `store_true` with default True, so FULL could not be
@@ -106,7 +109,7 @@ def run(arch: str, *, smoke: bool = True, requests: int = 200,
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="mistral-nemo-12b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="xlstm-350m")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--requests", type=int, default=200)

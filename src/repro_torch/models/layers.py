@@ -1,5 +1,6 @@
 """Core model layers for the dense GQA decoder: RMSNorm, RoPE, GQA
-projections, the train forward's attention, GLU FFN (decode attention is
+projections, the train forward's attention, the GLU FFN with a SiLU or GELU
+gate (prefill and decode attention are `kernels.ops.flash_attention` and
 `kernels.ops.decode_attention`).
 
 Parameters live in small `nn.Module`s whose names mirror `repro`'s parameter
@@ -9,6 +10,8 @@ model dtype; normalisation and rotary statistics in fp32, then cast, as in
 `repro/models/layers.py`.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -128,6 +131,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
-def ffn(params: FFN, x: torch.Tensor) -> torch.Tensor:
-    """SiLU-gated GLU (the only `ffn_act` ported)."""
-    return (F.silu(x @ params.w_gate) * (x @ params.w_up)) @ params.w_down
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu(x, approximate=True)`'s own formula, op by op in x's type
+    with its constants rounded to that type first: cdf = 0.5 * (1 +
+    tanh(sqrt(2/pi) * (x + 0.044715 * x**3))), then x * cdf.
+    `F.gelu(approximate="tanh")` rounds once, which in bf16 moves values by
+    an ulp."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
+ACTS = {"silu": F.silu, "gelu": gelu}
+
+
+def ffn(params: FFN, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """GLU: act(x @ w_gate) * (x @ w_up) @ w_down, act a key of ACTS."""
+    return (ACTS[act](x @ params.w_gate) * (x @ params.w_up)) @ params.w_down

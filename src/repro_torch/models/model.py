@@ -1,15 +1,21 @@
-"""Model core for the port: config, init, KV cache and the forward pass.
+"""Model core for the port: config, init, caches and the forward pass.
 
-Two patterns are ported:
-  * dense GQA `(("attn", "dense"),)`, full or sliding-window attention, in
-    `decode` mode (one token against the cache, the online-serving hot path)
-    and in `train` mode (full-sequence logits, the offline train step);
-  * mLSTM `(("mlstm", "none"),)` in `train` mode (full-sequence logits, the
-    offline train step of the profiling catalog).
+Two patterns are ported, each in every mode `repro` runs it in:
+  * dense GQA `(("attn", "dense"),)`, full or sliding-window attention, with
+    a SiLU or GELU FFN;
+  * mLSTM `(("mlstm", "none"),)`.
+Modes: `train` (full-sequence logits, the offline train step), `prefill`
+(the prompt's pass: last-token logits and the decode cache) and `decode`
+(one token against the cache, the online-serving hot path).  Prefill
+attention is `kernels.ops.flash_attention` and decode attention
+`kernels.ops.decode_attention`; the train forward keeps `repro`'s
+materialised attention under autograd, and the mLSTM runs no kernel.
+
 Blocks are an `nn.ModuleList` of per-layer modules, run by a Python loop; the
 cache keeps `repro`'s layout, a tuple over pattern positions of {"k", "v"}
-tensors with a leading `repeats` dimension.  A sliding-window model's cache
-holds min(window, capacity) rows; at `window` rows it is `repro`'s ring.
+(dense) or {"C", "n", "m", "conv"} (mLSTM) tensors with a leading `repeats`
+dimension.  A sliding-window model's cache holds min(window, capacity)
+rows; at `window` rows it is `repro`'s ring.
 
 `repro` wrapped the train forward's layer scan in `jax.checkpoint` (remat),
 which only trades recomputation for activation memory; the port keeps
@@ -57,12 +63,13 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
 
     def __post_init__(self):
-        dense = self.pattern == DENSE_PATTERN and self.ffn_act == "silu"
+        dense = self.pattern == DENSE_PATTERN and self.ffn_act in L.ACTS
         if not (dense or self.pattern == MLSTM_PATTERN):
             raise NotImplementedError(
                 f"{self.name}: only the dense pattern {DENSE_PATTERN} (full "
-                "or sliding-window attention) with a SiLU FFN and the mLSTM "
-                f"pattern {MLSTM_PATTERN} are ported; see ROADMAP.md")
+                f"or sliding-window attention) with an FFN gate in {tuple(L.ACTS)} "
+                f"and the mLSTM pattern {MLSTM_PATTERN} are ported; see "
+                "ROADMAP.md")
 
     @property
     def repeats(self) -> int:
@@ -156,14 +163,24 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
 
 def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
                device=None) -> tuple:
-    """Decode cache: tuple over pattern positions of {"k", "v"}, each
-    (repeats, batch, cap, Hk, head_dim) zeros in cfg.dtype, where cap is
-    kv_capacity, or min(window, kv_capacity) for a sliding window (the
-    ring's bound)."""
+    """Decode cache, a tuple over pattern positions, each leaf with a leading
+    `repeats` dimension.  Dense: {"k", "v"}, each (repeats, batch, cap, Hk,
+    head_dim) zeros in cfg.dtype, where cap is kv_capacity, or
+    min(window, kv_capacity) for a sliding window (the ring's bound).
+    mLSTM: {"C", "n", "m"} in fp32 (m at -60) and "conv" in cfg.dtype, the
+    shapes of `ssm.mlstm_state_init`; kv_capacity does not apply."""
     dev = resolve_device(device)
+    R = cfg.repeats
+    if cfg.pattern == MLSTM_PATTERN:
+        st = S.mlstm_state_init(batch, cfg, dev)
+        (C, n, m), conv = st["carry"], st["conv"]
+        return ({"C": C.expand(R, *C.shape).clone(),
+                 "n": n.expand(R, *n.shape).clone(),
+                 "m": m.expand(R, *m.shape).clone(),
+                 "conv": conv.expand(R, *conv.shape).clone()},)
     cap = (kv_capacity if cfg.window is None
            else min(cfg.window, kv_capacity))
-    shape = (cfg.repeats, batch, cap, cfg.num_kv_heads, cfg.head_dim)
+    shape = (R, batch, cap, cfg.num_kv_heads, cfg.head_dim)
     return tuple({"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                   "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
                  for _ in cfg.pattern)
@@ -177,23 +194,34 @@ def _embed(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor):
 
 def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
             mode: str = "decode", cache: tuple | None = None, pos=None):
-    """decode (dense pattern): batch={"tokens": (B, 1)}, cache, pos (int or
-    (B,)) -> (logits (B, Vpad), cache).
-    train: batch={"tokens": (B, S)} -> (logits (B, S, Vpad), aux), aux a
-    zero scalar (no MoE).
+    """decode: batch={"tokens": (B, 1)}, cache, pos (int or (B,); the mLSTM
+    ignores it) -> (logits (B, Vpad), cache).
+    prefill: batch={"tokens": (B, S)} -> (logits of the last position
+    (B, Vpad), a new cache of S rows (or the window's, ring-aligned), aux).
+    train: batch={"tokens": (B, S)} -> (logits (B, S, Vpad), aux).
+    aux is a zero scalar (no MoE).
 
     In decode the cache is updated in place: `repro` wrote a new cache
     functionally, which at full width would copy every layer's cache on
     every step.  The returned cache is the object passed in."""
-    if mode == "train" and cfg.pattern == MLSTM_PATTERN:
-        return _forward_train_mlstm(params, cfg, batch)
-    if mode == "train" and cfg.pattern == DENSE_PATTERN:
-        return _forward_train_dense(params, cfg, batch)
-    if mode != "decode" or cache is None or cfg.pattern != DENSE_PATTERN:
+    mlstm = cfg.pattern == MLSTM_PATTERN
+    if mode == "train":
+        return (_forward_train_mlstm if mlstm
+                else _forward_train_dense)(params, cfg, batch)
+    if mode == "prefill":
+        return (_forward_prefill_mlstm if mlstm
+                else _forward_prefill_dense)(params, cfg, batch)
+    if mode != "decode" or cache is None:
         raise NotImplementedError(
-            f"mode={mode!r} for pattern {cfg.pattern}: only decode against a "
-            "cache (dense) and train (dense, mLSTM) are ported; see "
-            "ROADMAP.md")
+            f"mode={mode!r}: the port runs train, prefill, and decode "
+            "against a cache; see ROADMAP.md")
+    if mlstm:
+        return _forward_decode_mlstm(params, cfg, batch, cache)
+    return _forward_decode_dense(params, cfg, batch, cache, pos)
+
+
+def _forward_decode_dense(params: Transformer, cfg: ModelConfig, batch: dict,
+                          cache: tuple, pos):
     dev = params.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     B = tokens.shape[0]
@@ -235,7 +263,7 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
         o = ops.decode_attention(q, kc[:, :live], vc[:, :live], lens)
         x = x + o.reshape(B, 1, H * dh) @ blk.attn.w_o
         h = L.rmsnorm(blk.norm2, x)
-        x = x + L.ffn(blk.ffn, h)
+        x = x + L.ffn(blk.ffn, h, cfg.ffn_act)
     x = L.rmsnorm(params.final_norm, x)
     return x[:, 0] @ params.lm_head, cache
 
@@ -252,7 +280,7 @@ def _forward_train_dense(params: Transformer, cfg: ModelConfig, batch: dict):
         o = L.attention(q, k, v, causal=True, window=cfg.window)
         x = x + o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ blk.attn.w_o
         h = L.rmsnorm(blk.norm2, x)
-        x = x + L.ffn(blk.ffn, h)
+        x = x + L.ffn(blk.ffn, h, cfg.ffn_act)
     x = L.rmsnorm(params.final_norm, x)
     return x @ params.lm_head, torch.zeros((), device=x.device)
 
@@ -266,3 +294,78 @@ def _forward_train_mlstm(params: Transformer, cfg: ModelConfig, batch: dict):
         x = x + o
     x = L.rmsnorm(params.final_norm, x)
     return x @ params.lm_head, torch.zeros((), device=x.device)
+
+
+def _forward_decode_mlstm(params: Transformer, cfg: ModelConfig, batch: dict,
+                          cache: tuple):
+    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
+    c = cache[0]
+    x = _embed(params, cfg, tokens)
+    for r, blk in enumerate(params.blocks):
+        h = L.rmsnorm(blk.norm1, x)
+        st = {"carry": (c["C"][r], c["n"][r], c["m"][r]), "conv": c["conv"][r]}
+        o, st = S.mlstm_decode_step(blk.mixer, h, st, cfg)
+        for name, new in zip(("C", "n", "m", "conv"), (*st["carry"],
+                                                         st["conv"])):
+            c[name][r].copy_(new)
+        x = x + o
+    x = L.rmsnorm(params.final_norm, x)
+    return x[:, 0] @ params.lm_head, cache
+
+
+def _last_logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """lm_head on the last position only (the norm is per position)."""
+    return (L.rmsnorm(params.final_norm, x[:, -1:]) @ params.lm_head)[:, 0]
+
+
+def _forward_prefill_dense(params: Transformer, cfg: ModelConfig,
+                           batch: dict):
+    """Prefill attention is the port's flash kernel on the card, where
+    `repro` ran its materialised `L.attention` (F3's documented divergence,
+    held at the reference's tolerances).  q and k come out of `apply_rope`
+    and v out of a reshape, all contiguous, so the bf16 kernel's 16-byte row
+    check holds at every head width the configs have (d 120: 240-byte rows)
+    and no copy is made."""
+    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
+    B, S = tokens.shape
+    W = cfg.window
+    positions = torch.arange(S, device=tokens.device)
+    rope = L.rope_table(positions[None], cfg.head_dim, cfg.rope_theta)
+    ks, vs = [], []
+    x = _embed(params, cfg, tokens)
+    for blk in params.blocks:
+        h = L.rmsnorm(blk.norm1, x)
+        q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
+        o = ops.flash_attention(q, k, v, causal=True, window=W)
+        if W is not None and S > W:
+            # the last W rows, rolled so that position p sits at slot p % W
+            # (`repro`'s ring-aligned prefill cache)
+            k, v = (torch.roll(t[:, -W:], S % W, dims=1) for t in (k, v))
+        ks.append(k)
+        vs.append(v)
+        x = x + o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ blk.attn.w_o
+        h = L.rmsnorm(blk.norm2, x)
+        x = x + L.ffn(blk.ffn, h, cfg.ffn_act)
+    cache = ({"k": torch.stack(ks), "v": torch.stack(vs)},)
+    return _last_logits(params, x), cache, torch.zeros((), device=x.device)
+
+
+def _forward_prefill_mlstm(params: Transformer, cfg: ModelConfig,
+                           batch: dict):
+    """The carry comes out of the chunked mixer; the conv window is the last
+    dc-1 rows of the pre-conv input, projected again from those rows of the
+    block's input alone (each row's projection is its own)."""
+    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
+    dp = cfg.mlstm_proj_factor * cfg.d_model
+    tail = cfg.ssm_conv_dim - 1
+    leaves = {"C": [], "n": [], "m": [], "conv": []}
+    x = _embed(params, cfg, tokens)
+    for blk in params.blocks:
+        h = L.rmsnorm(blk.norm1, x)
+        o, carry = S.mlstm_mixer(blk.mixer, h, cfg)
+        conv = h[:, -tail:] @ blk.mixer.up_proj[:, :dp]
+        for name, t in zip(leaves, (*carry, conv)):
+            leaves[name].append(t)
+        x = x + o
+    cache = ({k: torch.stack(v) for k, v in leaves.items()},)
+    return _last_logits(params, x), cache, torch.zeros((), device=x.device)

@@ -1,7 +1,8 @@
 """xLSTM's mLSTM mixer (matrix memory with exponential gating), ported from
-`repro/models/ssm.py` for the train/prefill path: the chunkwise-parallel
-`mlstm_mixer` and its sequential oracle `mlstm_mixer_ref`.  The Mamba mixer
-and the one-token decode steps wait for the rest of the model zoo.
+`repro/models/ssm.py`: the chunkwise-parallel `mlstm_mixer` (train and
+prefill), its sequential oracle `mlstm_mixer_ref`, and the one-token
+`mlstm_decode_step` with its state `mlstm_state_init`.  The Mamba mixer
+waits for the rest of the model zoo.
 
 Layouts and types follow `repro`: activations (B, S, ·) in the model type,
 q, k, v (B, H, S, dh) and the gates (B, H, S) in fp32.  `repro` wrapped each
@@ -129,10 +130,7 @@ def _mlstm_out(p: MLSTM, h: torch.Tensor, z: torch.Tensor, x_dtype,
     gate and the down projection.  h: (B,S,dp) fp32."""
     B, S, dp = h.shape
     H = cfg.num_heads
-    hg = h.reshape(B, S, H, dp // H)
-    mu = hg.mean(-1, keepdim=True)
-    var = hg.var(-1, keepdim=True, correction=0)
-    hg = (hg - mu) * torch.rsqrt(var + 1e-6)
+    hg = _group_norm_heads(h.reshape(B, S, H, dp // H))
     h = (hg.reshape(B, S, dp) * p.gn_scale).to(x_dtype)
     h = h * silu(z)
     return h @ p.down_proj
@@ -193,3 +191,45 @@ def mlstm_mixer_ref(p: MLSTM, x: torch.Tensor, cfg) -> torch.Tensor:
         hs.append(h)
     h = torch.stack(hs, dim=1).reshape(B, S, dp)          # (B,S,H,dh) flat
     return _mlstm_out(p, h, z, x.dtype, cfg)
+
+
+def _group_norm_heads(h: torch.Tensor) -> torch.Tensor:
+    """Per-head normalisation over the last dim, population variance."""
+    mu = h.mean(-1, keepdim=True)
+    var = h.var(-1, keepdim=True, correction=0)
+    return (h - mu) * torch.rsqrt(var + 1e-6)
+
+
+def mlstm_decode_step(p: MLSTM, x: torch.Tensor, state: dict, cfg):
+    """One-token decode.  x: (B,1,d); state: {"carry": (C, n, m), "conv":
+    (B, dc-1, dp)}.  Returns (y (B,1,d), new state); the inputs are not
+    written.  `repro`'s rounding points: the conv window summed by einsum in
+    the model type; q and k from the conv output, v from the pre-conv input,
+    all cast to fp32 and k then scaled by 1/sqrt(dh); the gates from the
+    conv output in fp32."""
+    B = x.shape[0]
+    dp = cfg.mlstm_proj_factor * cfg.d_model
+    H = cfg.num_heads
+    dh = dp // H
+    x_in, z = (x @ p.up_proj).chunk(2, dim=-1)                  # (B,1,dp)
+    conv_buf = torch.cat([state["conv"], x_in], dim=1)          # (B,dc,dp)
+    x_conv = silu(torch.einsum("bcd,cd->bd", conv_buf, p.conv_w) + p.conv_b)
+    qt = (x_conv @ p.w_q).reshape(B, H, dh).float()
+    kt = (x_conv @ p.w_k).reshape(B, H, dh).float() / math.sqrt(dh)
+    vt = (x_in[:, 0] @ p.w_v).reshape(B, H, dh).float()
+    it = x_conv.float() @ p.w_i + p.b_i
+    ft = x_conv.float() @ p.w_f + p.b_f
+    h, carry = _mlstm_cell_step(qt, kt, vt, it, ft, state["carry"])
+    h = (_group_norm_heads(h).reshape(B, dp) * p.gn_scale).to(x.dtype)
+    h = (h * silu(z[:, 0]))[:, None]
+    return h @ p.down_proj, {"carry": carry, "conv": conv_buf[:, 1:]}
+
+
+def mlstm_state_init(B: int, cfg, device) -> dict:
+    """The decode state before any token: zero C and n, m at -60, a zero
+    conv window in the model type."""
+    dp = cfg.mlstm_proj_factor * cfg.d_model
+    return {"carry": mlstm_carry_init(B, cfg.num_heads, dp // cfg.num_heads,
+                                      device),
+            "conv": torch.zeros((B, cfg.ssm_conv_dim - 1, dp),
+                                dtype=cfg.dtype, device=device)}

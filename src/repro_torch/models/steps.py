@@ -1,10 +1,22 @@
-"""Step functions: the decode step MuxFlow protects (the online workload) and
-the train step it packs in beside it (the offline workload)."""
+"""Step functions: the decode step MuxFlow protects (the online workload),
+the prefill and greedy generation around it, and the train and eval steps
+of the offline workload."""
 from __future__ import annotations
 
 import torch
 
-from .model import ModelConfig, forward
+from .model import ModelConfig, forward, init_cache
+
+
+def make_prefill(cfg: ModelConfig):
+    """prefill(params, batch) -> (next-token logits (B, Vpad), cache)."""
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        logits, cache, _aux = forward(params, cfg, batch, mode="prefill")
+        return logits, cache
+
+    return prefill
 
 
 def make_decode_step(cfg: ModelConfig):
@@ -18,6 +30,39 @@ def make_decode_step(cfg: ModelConfig):
                        cache=cache, pos=pos)
 
     return decode_step
+
+
+def greedy_generate(cfg: ModelConfig, params, batch: dict,
+                    steps: int) -> torch.Tensor:
+    """Prefill, then `steps` greedy decode steps: (B, steps + 1) token ids on
+    the params' device, the first from the prefill's logits.  The decode
+    cache has room for S0 + steps rows and starts from the prefill's; the
+    argmax runs over the first vocab_size columns on the device."""
+    logits, cache = make_prefill(cfg)(params, batch)
+    decode = make_decode_step(cfg)
+    B, S0 = batch["tokens"].shape
+    cache = _copy_prefix_cache(
+        cache, init_cache(cfg, B, S0 + steps, device=logits.device))
+    toks = [logits[:, :cfg.vocab_size].argmax(-1)]
+    for i in range(steps):
+        logits, cache = decode(params, cache, toks[-1][:, None], S0 + i)
+        toks.append(logits[:, :cfg.vocab_size].argmax(-1))
+    return torch.stack(toks, dim=1)
+
+
+def _copy_prefix_cache(src: tuple, dst: tuple) -> tuple:
+    """The prefill cache `src` in the decode cache `dst`: k and v written
+    into dst's first rows (in place), the mLSTM state taken whole."""
+    out = []
+    for s, d in zip(src, dst):
+        d = dict(d)
+        for name, v in s.items():
+            if name in ("k", "v"):
+                d[name][:, :, :v.shape[2]].copy_(v)
+            else:
+                d[name] = v
+        out.append(d)
+    return tuple(out)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -49,6 +94,17 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     logits, aux = forward(params, cfg, {"tokens": toks}, mode="train")
     ce = cross_entropy(logits, targets, cfg.vocab_size, mask)
     return ce, (ce, aux)
+
+
+def make_eval_step(cfg: ModelConfig):
+    """eval_step(params, batch) -> {"loss", "ce"}, without gradients."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, (ce, _aux) = loss_fn(params, cfg, batch)
+        return {"loss": loss, "ce": ce}
+
+    return eval_step
 
 
 def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1):

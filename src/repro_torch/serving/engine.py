@@ -15,6 +15,14 @@ Two differences from `repro`: the cache (`self.cache`) is updated in place by
 the decode step, and the greedy argmax is taken on the device, so each step
 copies B token ids to the host instead of the (B, Vpad) logits.  Greedy
 results are the same.
+
+Both ported patterns are served.  A reused slot is not reset, as in
+`repro`: a dense slot's stale KV rows are never read (attention reads the
+first pos + 1 rows), but the mLSTM state (C, n, m and the conv window) is
+not masked, so a request admitted into a freed slot starts from the state
+its predecessor left.  Its tokens then differ from `greedy_generate`'s on
+the same prompt (ROADMAP.md, F5).  The port keeps this to stay equal to
+the reference.
 """
 from __future__ import annotations
 

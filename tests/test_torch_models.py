@@ -105,15 +105,21 @@ def test_position_past_the_cache_raises(device, pos):
 
 
 def test_only_decode_is_ported(setup):
-    """Decode and train are ported for the dense pattern; prefill is not."""
+    """Decode, prefill and train are ported for the dense pattern; a mode
+    the port does not run (`repro`'s `train_hidden`) is refused."""
     _, _, cfg, model = setup
+    logits, cache, _ = forward(
+        model, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+        mode="prefill")
+    assert tuple(logits.shape) == (1, cfg.padded_vocab)
+    assert cache[0]["k"].shape[2] == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         forward(model, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                mode="prefill")
+                mode="train_hidden")
 
 
 @pytest.mark.parametrize("change", [{"pattern": (("mamba", "dense"),)},
-                                    {"ffn_act": "gelu"},
+                                    {"ffn_act": "relu"},
                                     {"pattern": (("attn", "moe"),)}])
 def test_unported_model_variants_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -124,7 +124,7 @@ def test_entry_points_refuse_cpu_without_asking(tmp_path, monkeypatch):
 def test_unported_architectures_raise():
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("gemma-7b", smoke=True)
+        get_config("pixtral-12b", smoke=True)
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-arch")
 
