@@ -70,16 +70,30 @@ Phases, one line each (or more); any failure raises and exits non-zero:
  11. fleet    MuxFlow's scheduling step at the paper's 20,000 GPUs: phase 8's
               card matrix and card-trained predictor drive
               `run_policy(MeasuredMuxFlowPolicy(matrix=card_matrix), ...)`
-              (trace B, 30 s ticks, a round every 900 s, seed 0, SimConfig's
-              12 h) once on the numpy tick engine and once on the torch
-              engine on the card; the two SimResults must be equal byte for
-              byte as canonical JSON; `online-only` at the same fleet gives
+              (trace B, 30 s ticks, a round every 900 s, seed 0, 4 h of
+              SimConfig's 12 h) once on the numpy tick engine and once on
+              the torch engine on the card; the two SimResults must be
+              equal byte for byte as canonical JSON; `online-only` at the same fleet gives
               the dedicated baseline; the card's predictions over one
               round's weight grid against the same MLP on the CPU (1e-5);
               one block of the torch engine under torch.profiler (the card's
               busy time and launches); then 200 devices under heavy faults,
               the torch engine in lockstep with numpy tick by tick and
-              byte-equal SimResults.
+              byte-equal SimResults;
+ 12. control  MuxFlow's control plane (`repro_torch.cluster`, the tick loop
+              with agents, fault campaign, autoscaler and job manager over
+              the engine): `repro`'s flagship `diurnal-mixed` at the paper's
+              20,000 GPUs over the scenario's 12 h, on the numpy engine and
+              on the torch engine on the card, under one predictor trained
+              once on the card by the policy's own `build_predictor`; the
+              reports must be equal byte for byte and schema clean; ms a
+              tick by engine, where the time goes, and the card's idle share
+              over the torch run's last ticks under torch.profiler; then the
+              front door in-process: `sim --scenario calibrated` (its matrix
+              built on the card through all three kernels, each of which must
+              launch), `serve --scenario serving-slo` (p50/p99/SLO attainment
+              by service) and `sim --scenario chaos-storm` (every injected
+              fault paired with its recovery).
 Then one line of each phase's seconds.  The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
@@ -272,7 +286,7 @@ def phase_device(torch) -> str:
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     kind = torch.cuda.get_device_name(0)
-    phase("1/11 device", kind=repr(kind), count=torch.cuda.device_count(),
+    phase("1/12 device", kind=repr(kind), count=torch.cuda.device_count(),
           capability=torch.cuda.get_device_capability(0),
           torch=torch.__version__, cuda=torch.version.cuda)
     return kind
@@ -284,7 +298,7 @@ def phase_build() -> None:
     paths = _build.build(*_build.sources())
     for name in paths:
         _build.load(name)
-    phase("2/11 build", kernels=",".join(paths),
+    phase("2/12 build", kernels=",".join(paths),
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
@@ -347,7 +361,7 @@ def check_decode(torch) -> float:
                 generate[dtype] = max(generate[dtype], err)
             n += 1
     require(len(catalog) == 2, "the catalog's decode shape was not checked")
-    phase("3/11 kernels", kernel="decode_attention", cases=n,
+    phase("3/12 kernels", kernel="decode_attention", cases=n,
           max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
           max_abs_err_fp32=f"{worst[torch.float32]:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_fp32=f"{catalog['float32']:.3e}",
@@ -404,7 +418,7 @@ def check_flash(torch) -> float:
         del q, big, k, v, out
     torch.cuda.empty_cache()
     small = [e for (s, _), e in errs.items() if s in FLASH_SHAPES]
-    phase("3/11 kernels", kernel="flash_attention", cases=len(errs),
+    phase("3/12 kernels", kernel="flash_attention", cases=len(errs),
           max_abs_err_sweep=f"{max(small):.3e}",
           max_abs_err_mistral_S4096_bf16=f"{errs[(FLASH_MAIN, 'bfloat16')]:.3e}",
           max_abs_err_mistral_S4096_fp32=f"{errs[(FLASH_MAIN, 'float32')]:.3e}",
@@ -468,7 +482,7 @@ def check_ssm(torch) -> float:
     sweep = {a: max(e for (s, k), e in errs.items()
                     if k == a and s != SSM_MAIN)
              for a in ("shared", "per_channel")}
-    phase("3/11 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+    phase("3/12 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
           lanes="1,2,4",
           max_abs_err_sweep=f"{sweep['shared']:.3e}",
           max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
@@ -484,7 +498,7 @@ def phase_parity(torch) -> None:
     import numpy as np
     mistral = parity(torch, "mistral-nemo-12b", [np.array([0, 3, 10, 40])],
                      steps=6, prompt=(2, 9), new=(2, 6))
-    phase("4/11 parity", config="mistral-nemo-12b/SMOKE/fp32",
+    phase("4/12 parity", config="mistral-nemo-12b/SMOKE/fp32",
           logits_max_abs_err=f"{mistral:.3e}", tol="1e-4",
           engine_tokens="equal")
     # one position for every row, then ragged per-row positions: 40 steps
@@ -493,7 +507,7 @@ def phase_parity(torch) -> None:
     danube = parity(torch, "h2o-danube-1.8b",
                     [np.zeros(4, np.int64), np.array([0, 5, 11, 30])],
                     steps=40, prompt=(10, 21), new=(8, 14))
-    phase("4/11 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
+    phase("4/12 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
           cache_rows=16, steps="40_scalar_pos+40_ragged_pos",
           logits_max_abs_err=f"{danube:.3e}", tol="1e-4",
           engine_tokens="equal")
@@ -501,12 +515,12 @@ def phase_parity(torch) -> None:
     # engine's six requests through three slots reuse slots (F5)
     xlstm = parity(torch, "xlstm-350m", [np.zeros(4, np.int64)], steps=20,
                    prompt=(2, 9), new=(2, 6))
-    phase("4/11 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
+    phase("4/12 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
           logits_max_abs_err=f"{xlstm:.3e}", tol="1e-4",
           engine_tokens="equal_under_slot_reuse")
     for arch in GENERATE_PARITY:
         err = generate_parity(torch, arch)
-        phase("4/11 parity.generate", config=f"{arch}/SMOKE/fp32",
+        phase("4/12 parity.generate", config=f"{arch}/SMOKE/fp32",
               batch=2, prompt=21, steps=12,
               prefill_logits_max_abs_err=f"{err:.3e}", tol="1e-4",
               greedy_tokens="equal")
@@ -618,7 +632,7 @@ def phase_serve(torch) -> dict:
     run_launches = da.launches
     require(run_launches == cfg.num_layers * res["decode_steps"],
             f"run: {run_launches} launches for {res['decode_steps']} steps")
-    phase("5/11 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+    phase("5/12 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
           p99_ms=res["p99_ms"], served=res["served"],
           decode_steps=res["decode_steps"], launches=run_launches,
           wall_s=f"{wall:.1f}")
@@ -653,7 +667,7 @@ def phase_serve(torch) -> dict:
                                        device="cuda"), 100)
     require(tuple(logits.shape) == (8, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    phase("5/11 serve.engine", requests=len(reqs), decode_steps=eng.steps,
+    phase("5/12 serve.engine", requests=len(reqs), decode_steps=eng.steps,
           new_tokens=new, tokens_per_s=f"{new / wall:.1f}",
           wall_s=f"{wall:.2f}", launches=eng_launches,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -703,7 +717,7 @@ def phase_share(torch) -> int:
         off_ms = (res["oversold"] * horizon / res["offline_steps"] * 1e3
                   if share else None)
         # the SLO guard's eviction ends the run early: fewer served
-        phase("6/11 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
+        phase("6/12 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=requests,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -778,7 +792,7 @@ def phase_generate(torch) -> dict:
             "vocabulary")
         for k in total:
             total[k] += n[k]
-        phase("7/11 generate", config=f"{arch}/FULL/bf16", batch=B,
+        phase("7/12 generate", config=f"{arch}/FULL/bf16", batch=B,
               prompt=S0, decode_steps=steps, new_tokens=B * (steps + 1),
               prefill_ms=f"{prefill_ms:.2f}",
               decode_ms_per_step=f"{(wall * 1e3 - prefill_ms) / steps:.2f}",
@@ -805,7 +819,7 @@ def phase_generate(torch) -> dict:
             require(res["train_steps_done"] == res["offline_steps"] + 2,
                     f"train steps {res['train_steps_done']} for "
                     f"{res['offline_steps']} offline steps")
-        phase("7/11 generate.serve", config="xlstm-350m/FULL/bf16",
+        phase("7/12 generate.serve", config="xlstm-350m/FULL/bf16",
               share=share, batch=4, requests=200, base_ms=res["base_ms"],
               p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
               served=res["served"], evicted=res["served"] < 200,
@@ -859,13 +873,13 @@ def phase_profile(torch) -> tuple[dict, object, object]:
         atol, rtol = CHECKSUM_TOL[name]
         require(abs(g - w) <= atol + rtol * abs(w),
                 f"{name}: checksum {g} on the card, {w} on the CPU")
-        phase("8/11 profile.exec", workload=name, device="cuda",
+        phase("8/12 profile.exec", workload=name, device="cuda",
               steps=rec.steps_executed,
               wall_ms_per_step=rec.wall_ms_per_step, checksum_card=g,
               checksum_cpu=w, tol=f"atol:{atol},rtol:{rtol}")
     require(got == want, "the card's matrix differs from the CPU-built one "
             "in a field other than the checksums")
-    phase("8/11 profile", suite="smoke", seed=0, pairs=len(card.pairs),
+    phase("8/12 profile", suite="smoke", seed=0, pairs=len(card.pairs),
           cells=sum(len(p["shares"]) for p in card.pairs), schema="clean",
           matrix="equal_to_cpu_but_checksums", launches=counts,
           wall_s=f"{wall:.2f}", cpu_matrix_s=f"{cpu_s:.2f}")
@@ -880,7 +894,7 @@ def phase_profile(torch) -> tuple[dict, object, object]:
             f"bad validation MAE {maes}")
     require(all(p[0]["w"].device.type == "cuda"
                 for p in pred.params_by_type.values()), "predictor not on card")
-    phase("8/11 profile.predictor", device="cuda",
+    phase("8/12 profile.predictor", device="cuda",
           epochs=len(hist["T4"]["val_mae"]),
           **{f"final_val_mae_{gpu}": m for gpu, m in maes.items()},
           seconds=f"{secs:.2f}")
@@ -912,7 +926,7 @@ def phase_train(torch) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    phase("9/11 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
+    phase("9/12 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
           params=cfg.param_count(), losses=losses, step_ms=ms,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     del params, state
@@ -938,7 +952,7 @@ def train_danube(torch) -> None:
     losses = out["losses"]
     require(out["steps_done"] == 5 and not out["interrupted"]
             and all(math.isfinite(v) for v in losses), f"train.run {out}")
-    phase("9/11 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
+    phase("9/12 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
           batch=8, seq=64, params=cfg.param_count(), losses=losses,
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -983,7 +997,7 @@ def offline_step_breakdown(torch) -> None:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     n = cfg.param_count()
-    phase("9/11 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
+    phase("9/12 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
           batch=4, seq=32, step_ms=[t * 1e3 for t in step_s[1:]],
           grad_ms=[(t - u) * 1e3 for t, u in zip(step_s[1:], update_s[1:])],
           adamw_ms=[u * 1e3 for u in update_s[1:]],
@@ -1027,7 +1041,7 @@ def checkpoint_roundtrip(torch) -> None:
     require(at == 2 and len(pairs) == 4 * len(tree[0]) + 1 and all(
         y.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
         for x, y in pairs), "restored checkpoint differs")
-    phase("9/11 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
+    phase("9/12 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
           leaves=len(pairs), step=at, restored_to="cuda", equal="bitwise")
 
 
@@ -1071,7 +1085,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
         da._library(), dev, q.dtype, H, Hk, d))
     call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
-    phase("10/11 timing", kernel="decode_attention",
+    phase("10/12 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
           ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
           splits=ns, split_len=split_len)
@@ -1085,7 +1099,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - da.decode_attention_plain(
         q, k, v, lens).float()).abs().max())
     library_ms, library_events_ms = graph_ms(torch, sdpa), time_ms(torch, sdpa)
-    phase("10/11 timing", kernel="decode_attention",
+    phase("10/12 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
           ms=ms, events_ms=events_ms, plain_ms=plain_ms,
           library_ms=library_ms, library_events_ms=library_events_ms,
@@ -1096,7 +1110,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
                                          ("gemma", ZOO_DECODE[3])):
         q2, k2, v2, lens2, sdpa2, bound2, by2 = decode_inputs(
             torch, gen, b, skv, h, hk, dh)
-        phase("10/11 timing", kernel="decode_attention", model=name,
+        phase("10/12 timing", kernel="decode_attention", model=name,
               shape=f"B{b}_Skv{skv}_H{h}_Hk{hk}_d{dh}_bf16_kvlen{skv}",
               graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
                   q2, k2, v2, lens2)),
@@ -1153,7 +1167,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             ptxas[f"wgmma_forward_{dp_bk}"] = (
                 f"regs:{r.get('registers')},spill_bytes:"
                 f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/11 timing", kernel="flash_attention", design="wgmma",
+    phase("10/12 timing", kernel="flash_attention", design="wgmma",
           bf16_tile=fa.tile_plan(d), **ptxas)
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v, sdpa, bound_ms, by, flops, nbytes = flash_inputs(torch, gen,
@@ -1166,7 +1180,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - fa.flash_attention_cuda(
         q, k, v, causal=causal).float()).abs().max())
     library_ms = time_ms(torch, sdpa)
-    phase("10/11 timing", kernel="flash_attention",
+    phase("10/12 timing", kernel="flash_attention",
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal", ms=ms,
           plain_ms=plain_ms, library_ms=library_ms,
           library_vs_kernel_max_abs_diff=f"{library_err:.3e}",
@@ -1177,7 +1191,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
         q2, k2, v2, sdpa2, bound2, by2, flops2, nbytes2 = flash_inputs(
             torch, gen, shape)
         B2, Sq2, _, H2, Hk2, d2, _, window2 = shape
-        phase("10/11 timing", kernel="flash_attention", model=name,
+        phase("10/12 timing", kernel="flash_attention", model=name,
               shape=f"B{B2}_S{Sq2}_H{H2}_Hk{Hk2}_d{d2}_bf16_causal"
               + (f"_w{window2}" if window2 else ""),
               bf16_tile=fa.tile_plan(d2), graph_ms=graph_ms(
@@ -1215,7 +1229,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         ptxas[f"N{n}_L{lanes}"] = (
             f"regs:{r.get('registers')},spill_bytes:"
             f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/11 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
+    phase("10/12 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
     shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
@@ -1226,7 +1240,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
         events_ms = time_ms(torch, call)
         clock = sm_clock()
-        phase("10/11 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+        phase("10/12 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
               ms=events_ms, sm_clock_mhz=clock,
               graph_ms=graph_ms(torch, call))
     plan = ss.lane_plan(B, di, N,
@@ -1245,7 +1259,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("10/11 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+    phase("10/12 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
           channels_per_block=plan.channels, blocks=plan.blocks,
           busiest_sm_channels=plan.busiest,
           mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
@@ -1262,9 +1276,10 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
             "bound_by": by, "library_ms": None}
 
 
-# phase 11: the paper's deployment ("more than 20,000 GPUs") over
-# SimConfig's whole 12 h horizon (1,440 ticks, 48 scheduling rounds; uncut)
-FLEET = dict(n_devices=20000, horizon_s=12 * 3600.0, trace="B", tick_s=30.0,
+# phase 11: the paper's deployment ("more than 20,000 GPUs") over 4 h of
+# SimConfig's 12 h (480 ticks, 16 scheduling rounds), cut so that phase 12
+# runs its campaign over the whole 12 h within the script's time
+FLEET = dict(n_devices=20000, horizon_s=4 * 3600.0, trace="B", tick_s=30.0,
              schedule_interval_s=900.0, seed=0)
 # every branch of the tick core fires (tests/test_engine_xla.py:53's faults)
 FLEET_FAULTS = dict(n_devices=200, horizon_s=2 * 3600.0, trace="D", seed=11,
@@ -1395,7 +1410,7 @@ def fleet_line(name: str, engine: str, run: dict, **extra) -> None:
                       predictor_ms_max=f"{max(ms):.3f}")
     fields["phases_s"] = json.dumps({k: round(v, 3) for k, v in
                                      sorted(run["phases_s"].items())})
-    phase(f"11/11 fleet.{name}", engine=engine, **fields, **extra)
+    phase(f"11/12 fleet.{name}", engine=engine, **fields, **extra)
 
 
 def engine_profile(torch, sim, ticks: int = 30) -> None:
@@ -1429,7 +1444,7 @@ def engine_profile(torch, sim, ticks: int = 30) -> None:
                       idle_share=f"{1.0 - busy / wall_ms:.3f}")
     else:
         fields.update(device_busy_ms="not measured (no device events)")
-    phase("11/11 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
+    phase("11/12 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
           **fields)
 
 
@@ -1455,7 +1470,7 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
                    device=("cuda" if engine == "torch" else "host"),
                    n_devices=FLEET["n_devices"],
                    horizon_h=FLEET["horizon_s"] / 3600.0,
-                   cut="none (SimConfig's whole 12 h)")
+                   cut="4 h of SimConfig's 12 h")
     require(runs["numpy"]["json"] == runs["torch"]["json"],
             "SimResults differ between the numpy and torch engines")
     engine_profile(torch, runs["torch"]["sim"])
@@ -1478,7 +1493,7 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
               for t, f, _ in calls)
     require(err <= PREDICTOR_TOL,
             f"card predictions off the CPU's by {err} > {PREDICTOR_TOL}")
-    phase("11/11 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
+    phase("11/12 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
           gpu_types=sorted({str(t) for t, _, _ in calls}), max_abs_err=err,
           tol=PREDICTOR_TOL, matmul_precision=repr(
               torch.get_float32_matmul_precision()),
@@ -1515,6 +1530,185 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
         require(events.get(key, 0) > 0, f"no {key} under heavy faults")
     fleet_line("faults", "numpy==torch", faults["torch"], events=events,
                overlimit_devices=readmits, lockstep_ticks=n_ticks)
+
+
+# phase 12: `repro`'s flagship campaign at the paper's fleet, over the
+# scenario's own 12 h and 30 s ticks (uncut)
+CONTROL = dict(scenario="diurnal-mixed", n_devices=20000)
+CONTROL_PROFILED_TICKS = 30
+
+
+def timed_method(obj, name: str, phases: Phases, label: str) -> None:
+    """Time every call of `obj.name` into `phases` under `label`."""
+    inner = getattr(obj, name)
+
+    def call(*args, **kw):
+        with phases.phase(label):
+            return inner(*args, **kw)
+    setattr(obj, name, call)
+
+
+def control_run(torch, sc, predictor, engine: str) -> dict:
+    """One `ControlPlane` campaign; its last ticks on their own (the torch
+    engine's under torch.profiler), so that ms a tick reads the rest.  The
+    split: the engine's phases (`schedule` holds `match` and `predict`),
+    the control plane's parts between ticks, and the rest (`other`: the
+    loop, the engine's step outside its phases, the bus's hooks)."""
+    from repro_torch.cluster.control import ControlPlane
+    cp = ControlPlane(sc.with_overrides(engine=engine), predictor=predictor)
+    phases = Phases()
+    cp.sim.attach_phases(phases)
+    timed_method(cp, "_submit_due", phases, "submit")
+    timed_method(cp, "_autoscale", phases, "autoscale")
+    timed_method(cp.campaign, "inject", phases, "faults")
+    timed_method(cp.agents, "observe", phases, "agents")
+    n = int(sc.horizon_seconds() / sc.tick_s)
+    head = n - CONTROL_PROFILED_TICKS
+    t = time.perf_counter()
+    cp.run(stop_tick=head)
+    torch.cuda.synchronize()
+    head_s = time.perf_counter() - t
+    split = dict(phases.s, schedule=sum(cp.sim.schedule_latencies))
+    split["other"] = head_s - sum(v for k, v in split.items()
+                                  if k not in ("match", "predict"))
+    tail = contextlib.nullcontext()
+    if engine == "torch":
+        from torch.profiler import ProfilerActivity, profile
+        tail = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+    t = time.perf_counter()
+    with tail as prof:
+        cp.run(start_tick=head, start_t=cp._t_end)
+        torch.cuda.synchronize()
+    tail_s = time.perf_counter() - t
+    out = {"report": cp.report(), "head_s": head_s, "tail_s": tail_s,
+           "ms_per_tick": head_s * 1e3 / head, "split_s": split}
+    if engine == "torch":
+        from torch.autograd import DeviceType
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        out["profiled"] = (
+            dict(device_busy_ms=f"{busy:.3f}", launches=len(dev),
+                 idle_share=f"{1.0 - busy / (tail_s * 1e3):.3f}")
+            if dev else dict(device_busy_ms="not measured (no device "
+                                            "events)"))
+    return out
+
+
+def run_cli(torch, argv: list) -> tuple[dict, float]:
+    """`python -m repro_torch <argv>` in-process, its report written to a
+    temporary file; returns the report and the wall seconds."""
+    import tempfile
+
+    from repro_torch import cli
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "report.json")
+        t = time.perf_counter()
+        rc = cli.main([*argv, "--out", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        require(rc == 0, f"{argv}: exit code {rc}")
+        with open(path) as f:
+            return json.load(f), wall
+
+
+def phase_control(torch) -> dict:
+    """MuxFlow's control plane at 20,000 GPUs on both engines, byte for
+    byte, then the front door's `sim` and `serve` on three scenarios.
+    Returns the kernels' launch counts of this path (the calibrated run's
+    matrix)."""
+    from repro_torch.cluster.control import check_schema
+    from repro_torch.cluster.fleet import FleetSpec
+    from repro_torch.cluster.scenario import scenario_by_name
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.policies import resolve
+    sc = scenario_by_name(CONTROL["scenario"]).with_overrides(
+        n_devices=CONTROL["n_devices"])
+    t = time.perf_counter()
+    predictor = resolve(sc.policy).build_predictor(
+        FleetSpec(sc.n_devices, sc.pools).gpu_types,
+        samples=sc.predictor_samples, epochs=sc.predictor_epochs, seed=0)
+    torch.cuda.synchronize()
+    require(all(p[0]["w"].device.type == "cuda"
+                for p in predictor.params_by_type.values()),
+            "the predictor is not on the card")
+    phase("12/12 control.predictor", device="cuda", policy=sc.policy,
+          samples=sc.predictor_samples, epochs=sc.predictor_epochs,
+          seconds=f"{time.perf_counter() - t:.2f}")
+    runs = {engine: control_run(torch, sc, predictor, engine)
+            for engine in ("numpy", "torch")}
+    canon = {e: json.dumps(r["report"], indent=2, sort_keys=True)
+             for e, r in runs.items()}
+    require(canon["numpy"] == canon["torch"],
+            "the control plane's reports differ between the engines")
+    rep = runs["numpy"]["report"]
+    problems = check_schema(rep)
+    require(not problems, f"report schema: {problems}")
+    s, f = rep["sim"], rep["faults"]
+    require(s["n_finished"] > 0 and 0.0 < s["gpu_util"] <= 1.0
+            and math.isfinite(f["propagation_rate"]),
+            f"implausible campaign report {s}")
+    for engine, run in runs.items():
+        phase("12/12 control.diurnal-mixed", engine=engine,
+              device=("cuda" if engine == "torch" else "host"),
+              n_devices=sc.n_devices, hours=sc.hours, tick_s=sc.tick_s,
+              wall_s=f"{run['head_s'] + run['tail_s']:.2f}",
+              ms_per_tick=f"{run['ms_per_tick']:.3f}",
+              split_s=json.dumps({k: round(v, 3) for k, v in
+                                  sorted(run["split_s"].items())}),
+              **run.get("profiled", {}))
+    phase("12/12 control.report", scenario=sc.name, engines="numpy==torch",
+          bytes=len(canon["numpy"]), schema="clean",
+          gpu_util=s["gpu_util"], sm_activity=s["sm_activity"],
+          oversold_gpu=s["oversold_gpu"], avg_slowdown=s["avg_slowdown"],
+          n_jobs=s["n_jobs"], n_finished=s["n_finished"],
+          faults_injected=f["injected"], faults_propagated=f["propagated"],
+          propagation_rate=f["propagation_rate"],
+          autoscale_decisions=rep["autoscaler"]["n_decisions"],
+          stale_device_ticks=rep["agents"]["stale_device_ticks"],
+          events=rep["events"]["n_events"])
+
+    # the front door: the measured matrix built on the card
+    da.launches = fa.launches = ss.launches = 0
+    rep, wall = run_cli(torch, ["sim", "--scenario", "calibrated"])
+    counts = {"decode_attention": da.launches, "flash_attention": fa.launches,
+              "ssm_scan": ss.launches}
+    require(all(n > 0 for n in counts.values()),
+            f"the calibrated run's matrix did not launch every kernel "
+            f"(phase 8's matrix is not reused): {counts}")
+    require(not check_schema(rep) and rep["sim"]["n_finished"] > 0,
+            "calibrated: bad report")
+    phase("12/12 control.calibrated", n_devices=rep["scenario"]["n_devices"],
+          matrix="built on the card", launches=counts,
+          gpu_util=rep["sim"]["gpu_util"],
+          avg_slowdown=rep["sim"]["avg_slowdown"],
+          n_finished=rep["sim"]["n_finished"], wall_s=f"{wall:.2f}")
+
+    rep, wall = run_cli(torch, ["serve", "--scenario", "serving-slo"])
+    serving = rep["serving"]
+    require(not check_schema(rep) and serving["total"]["served"] > 0,
+            "serving-slo: bad report")
+    for svc, row in sorted(serving["services"].items()) + [
+            ("total", serving["total"])]:
+        phase("12/12 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
+              p99_ms=row["p99_ms"], slo_attainment=row["slo_attainment"],
+              shed=row["shed"], arrived=row["arrived"])
+    phase("12/12 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
+          hours=rep["scenario"]["hours"], wall_s=f"{wall:.2f}")
+
+    rep, wall = run_cli(torch, ["sim", "--scenario", "chaos-storm"])
+    res = rep["resilience"]
+    require(not check_schema(rep) and res["injected"] > 0
+            and res["unmatched"] == 0,
+            f"chaos-storm: unpaired faults {res['unmatched_by_kind']}")
+    phase("12/12 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
+          injected=res["injected"], recovered=res["recovered"],
+          unmatched=res["unmatched"],
+          injected_by_kind=json.dumps(res["injected_by_kind"]),
+          wall_s=f"{wall:.2f}")
+    return counts
 
 
 def main() -> int:
@@ -1555,6 +1749,8 @@ def main() -> int:
     timed("train", phase_train, torch)
     kernels = timed("timing", phase_timing, torch, launches, max_err)
     timed("fleet", phase_fleet, torch, card_matrix, predictor)
+    for kernel, n in timed("control", phase_control, torch).items():
+        next(k for k in kernels if k["name"] == kernel)["launches"] += n
     phase("seconds", **seconds, total=f"{sum(seconds.values()):.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -82,6 +82,12 @@ class SharingPolicy:
         return build_speed_predictor(gpu_types=tuple(gpu_types), n=samples,
                                      epochs=epochs, seed=seed, device=device)
 
+    def on_device(self, device) -> "SharingPolicy":
+        """This policy with the work it does on a device placed on
+        ``device`` (None: the CUDA card).  The analytic policies do none and
+        return themselves; the measured policy builds its matrix there."""
+        return self
+
     # ----------------------------------------------------------- performance
     def shared_performance(self, on: dict[str, np.ndarray],
                            off: dict[str, np.ndarray],

@@ -270,6 +270,13 @@ class MeasuredMuxFlowPolicy:
     def shared_performance(self, on, off, shares):
         return self.provider(on, off, shares)
 
+    def on_device(self, device):
+        """A policy whose default matrix is built on ``device``; a pinned
+        matrix or the same device keeps this one."""
+        if self._pinned or device == self._device:
+            return self
+        return type(self)(suite=self._suite, device=device)
+
     def build_predictor(self, gpu_types, *, samples: int = 2000,
                         epochs: int = 120, seed: int = 0, device=None):
         return build_measured_predictor(self.matrix, gpu_types, n=samples,

@@ -11,6 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from _numpy_predictor import NumpyPredictor
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -58,7 +60,12 @@ def test_every_module_imports_without_jax_or_repro():
         "       'launch.train', 'core.simulator', 'core.engine_torch',\n"
         "       'core.matching', 'core.scheduler', 'core.traces',\n"
         "       'core.dynamic_sm', 'core.errors', 'policies',\n"
-        "       'policies.base', 'policies.builtin', 'policies.extra')}\n"
+        "       'policies.base', 'policies.builtin', 'policies.extra',\n"
+        "       'core.autoscaler', 'cluster', 'cluster.events',\n"
+        "       'cluster.jobs', 'cluster.fleet', 'cluster.faults',\n"
+        "       'cluster.agents', 'cluster.scenario', 'cluster.control',\n"
+        "       'serving_plane.admission', 'serving_plane.plane', 'chaos',\n"
+        "       'chaos.injector', 'chaos.campaign')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
@@ -74,6 +81,8 @@ def test_entry_points_refuse_cpu_without_asking(tmp_path, monkeypatch):
         pytest.skip("this machine has a CUDA card")
     from repro_torch import resolve_device
     from repro_torch.checkpoint import restore, save
+    from repro_torch.cli import main as cli_main
+    from repro_torch.cluster.control import run_scenario
     from repro_torch.configs import get_config
     from repro_torch.core.predictor import build_speed_predictor
     from repro_torch.core.simulator import run_policy
@@ -108,6 +117,14 @@ def test_entry_points_refuse_cpu_without_asking(tmp_path, monkeypatch):
         lambda: run_policy("time-sharing", n_devices=8, horizon_s=600.0,
                            engine="torch"),
         default_matrix,
+        lambda: run_scenario("smoke", n_devices=8, hours=0.1),
+        lambda: run_scenario("mig-partition", engine="torch", n_devices=8,
+                             hours=0.1),
+        lambda: run_scenario("calibrated", predictor=NumpyPredictor(),
+                             n_devices=8, hours=0.1),
+        lambda: cli_main(["sim", "--scenario", "mig-partition",
+                          "--engine", "numpy", "--devices", "8"]),
+        lambda: cli_main(["serve", "--devices", "8", "--hours", "0.1"]),
     ]
     for fn in refused:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -118,6 +135,12 @@ def test_entry_points_refuse_cpu_without_asking(tmp_path, monkeypatch):
                            "--out", "unused.json"], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "repro_torch", "sim",
+                           "--scenario", "mig-partition", "--devices", "8"],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+    assert proc.stdout == ""
     assert not (ROOT / "unused.json").exists()
 
 

@@ -24,6 +24,8 @@ from repro_torch.profiling import calibrate as t_cal
 from repro_torch.profiling.harness import build_speed_matrix
 from repro_torch.profiling.matrix import SpeedMatrix as PortMatrix
 
+from _numpy_predictor import NumpyPredictor
+
 FAST = dict(n_devices=40, horizon_s=3 * 3600.0, tick_s=60.0, trace="B",
             seed=3)                                  # tests/test_simulator.py
 TINY = dict(n_devices=16, horizon_s=3600.0, tick_s=60.0, trace="B",
@@ -38,23 +40,6 @@ STATE = ("has_job", "model_idx", "sm_share", "progress", "checkpoint",
 POLICIES = ("muxflow", "muxflow-m", "muxflow-measured", "muxflow-s",
             "muxflow-s-m", "online-only", "pb-time-sharing",
             "static-partition", "tally-priority", "time-sharing")
-
-
-class NumpyPredictor:
-    """A deterministic float64 numpy MLP with float32 answers, one per GPU
-    type: both packages schedule with the same object, so the matching can
-    not flip on one framework's fp32 rounding."""
-
-    def __init__(self, seed: int = 0, gpu_types=("T4", "A10", "A100")):
-        rng = np.random.default_rng(seed)
-        self.params_by_type = {
-            t: (rng.standard_normal((9, 16)), rng.standard_normal(16),
-                rng.standard_normal(16)) for t in gpu_types}
-
-    def predict(self, gpu_type, feats):
-        w1, b1, w2 = self.params_by_type[gpu_type]
-        h = np.maximum(np.asarray(feats, np.float64) @ w1 + b1, 0.0)
-        return (1.0 / (1.0 + np.exp(-(h @ w2) / 4.0))).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
