@@ -70,7 +70,7 @@ Phases, one line each (or more); any failure raises and exits non-zero:
  11. fleet    MuxFlow's scheduling step at the paper's 20,000 GPUs: phase 8's
               card matrix and card-trained predictor drive
               `run_policy(MeasuredMuxFlowPolicy(matrix=card_matrix), ...)`
-              (trace B, 30 s ticks, a round every 900 s, seed 0, 4 h of
+              (trace B, 30 s ticks, a round every 900 s, seed 0, 2 h of
               SimConfig's 12 h) once on the numpy tick engine and once on
               the torch engine on the card; the two SimResults must be
               equal byte for byte as canonical JSON; `online-only` at the same fleet gives
@@ -93,7 +93,26 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               built on the card through all three kernels, each of which must
               launch), `serve --scenario serving-slo` (p50/p99/SLO attainment
               by service) and `sim --scenario chaos-storm` (every injected
-              fault paired with its recovery).
+              fault paired with its recovery);
+ 13. durable  the observability and durability planes over the card's tick
+              engine: `sim --scenario diurnal-mixed --devices 20000
+              --hours 6 --engine torch` (6 h of its 12 h) with every obs
+              flag (metrics, trace, Prometheus and alerts every 600 s,
+              `--profile-phases`) and `--durable` (jsonl WAL, a snapshot
+              every 1800 s): the report schema clean with every event in
+              the WAL, the Prometheus text lint-clean, the manifest
+              verified; the time by layer (WAL appends, snapshots, metrics,
+              trace, alerts) and the engine's phase table; the same run
+              killed by a tick callback at tick 500 (between two
+              snapshots, after the pruning began) and resumed
+              by `python -m repro_torch sim --resume` in a fresh process
+              (which trains its predictor again on the card): the report
+              and the four obs files byte-equal to the uninterrupted run's,
+              `diff` identical; `inspect` at tick 630; `serve --scenario
+              serving-slo` durable with every obs flag on the numpy and
+              the torch engine, every artifact and WAL segment byte-equal;
+              `chaos --scenario chaos-storm --engine torch`, every invariant
+              passing.
 Then one line of each phase's seconds.  The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
@@ -286,7 +305,7 @@ def phase_device(torch) -> str:
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     kind = torch.cuda.get_device_name(0)
-    phase("1/12 device", kind=repr(kind), count=torch.cuda.device_count(),
+    phase("1/13 device", kind=repr(kind), count=torch.cuda.device_count(),
           capability=torch.cuda.get_device_capability(0),
           torch=torch.__version__, cuda=torch.version.cuda)
     return kind
@@ -298,7 +317,7 @@ def phase_build() -> None:
     paths = _build.build(*_build.sources())
     for name in paths:
         _build.load(name)
-    phase("2/12 build", kernels=",".join(paths),
+    phase("2/13 build", kernels=",".join(paths),
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
@@ -361,7 +380,7 @@ def check_decode(torch) -> float:
                 generate[dtype] = max(generate[dtype], err)
             n += 1
     require(len(catalog) == 2, "the catalog's decode shape was not checked")
-    phase("3/12 kernels", kernel="decode_attention", cases=n,
+    phase("3/13 kernels", kernel="decode_attention", cases=n,
           max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
           max_abs_err_fp32=f"{worst[torch.float32]:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_fp32=f"{catalog['float32']:.3e}",
@@ -418,7 +437,7 @@ def check_flash(torch) -> float:
         del q, big, k, v, out
     torch.cuda.empty_cache()
     small = [e for (s, _), e in errs.items() if s in FLASH_SHAPES]
-    phase("3/12 kernels", kernel="flash_attention", cases=len(errs),
+    phase("3/13 kernels", kernel="flash_attention", cases=len(errs),
           max_abs_err_sweep=f"{max(small):.3e}",
           max_abs_err_mistral_S4096_bf16=f"{errs[(FLASH_MAIN, 'bfloat16')]:.3e}",
           max_abs_err_mistral_S4096_fp32=f"{errs[(FLASH_MAIN, 'float32')]:.3e}",
@@ -482,7 +501,7 @@ def check_ssm(torch) -> float:
     sweep = {a: max(e for (s, k), e in errs.items()
                     if k == a and s != SSM_MAIN)
              for a in ("shared", "per_channel")}
-    phase("3/12 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+    phase("3/13 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
           lanes="1,2,4",
           max_abs_err_sweep=f"{sweep['shared']:.3e}",
           max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
@@ -498,7 +517,7 @@ def phase_parity(torch) -> None:
     import numpy as np
     mistral = parity(torch, "mistral-nemo-12b", [np.array([0, 3, 10, 40])],
                      steps=6, prompt=(2, 9), new=(2, 6))
-    phase("4/12 parity", config="mistral-nemo-12b/SMOKE/fp32",
+    phase("4/13 parity", config="mistral-nemo-12b/SMOKE/fp32",
           logits_max_abs_err=f"{mistral:.3e}", tol="1e-4",
           engine_tokens="equal")
     # one position for every row, then ragged per-row positions: 40 steps
@@ -507,7 +526,7 @@ def phase_parity(torch) -> None:
     danube = parity(torch, "h2o-danube-1.8b",
                     [np.zeros(4, np.int64), np.array([0, 5, 11, 30])],
                     steps=40, prompt=(10, 21), new=(8, 14))
-    phase("4/12 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
+    phase("4/13 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
           cache_rows=16, steps="40_scalar_pos+40_ragged_pos",
           logits_max_abs_err=f"{danube:.3e}", tol="1e-4",
           engine_tokens="equal")
@@ -515,12 +534,12 @@ def phase_parity(torch) -> None:
     # engine's six requests through three slots reuse slots (F5)
     xlstm = parity(torch, "xlstm-350m", [np.zeros(4, np.int64)], steps=20,
                    prompt=(2, 9), new=(2, 6))
-    phase("4/12 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
+    phase("4/13 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
           logits_max_abs_err=f"{xlstm:.3e}", tol="1e-4",
           engine_tokens="equal_under_slot_reuse")
     for arch in GENERATE_PARITY:
         err = generate_parity(torch, arch)
-        phase("4/12 parity.generate", config=f"{arch}/SMOKE/fp32",
+        phase("4/13 parity.generate", config=f"{arch}/SMOKE/fp32",
               batch=2, prompt=21, steps=12,
               prefill_logits_max_abs_err=f"{err:.3e}", tol="1e-4",
               greedy_tokens="equal")
@@ -632,7 +651,7 @@ def phase_serve(torch) -> dict:
     run_launches = da.launches
     require(run_launches == cfg.num_layers * res["decode_steps"],
             f"run: {run_launches} launches for {res['decode_steps']} steps")
-    phase("5/12 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+    phase("5/13 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
           p99_ms=res["p99_ms"], served=res["served"],
           decode_steps=res["decode_steps"], launches=run_launches,
           wall_s=f"{wall:.1f}")
@@ -667,7 +686,7 @@ def phase_serve(torch) -> dict:
                                        device="cuda"), 100)
     require(tuple(logits.shape) == (8, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    phase("5/12 serve.engine", requests=len(reqs), decode_steps=eng.steps,
+    phase("5/13 serve.engine", requests=len(reqs), decode_steps=eng.steps,
           new_tokens=new, tokens_per_s=f"{new / wall:.1f}",
           wall_s=f"{wall:.2f}", launches=eng_launches,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -717,7 +736,7 @@ def phase_share(torch) -> int:
         off_ms = (res["oversold"] * horizon / res["offline_steps"] * 1e3
                   if share else None)
         # the SLO guard's eviction ends the run early: fewer served
-        phase("6/12 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
+        phase("6/13 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=requests,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -792,7 +811,7 @@ def phase_generate(torch) -> dict:
             "vocabulary")
         for k in total:
             total[k] += n[k]
-        phase("7/12 generate", config=f"{arch}/FULL/bf16", batch=B,
+        phase("7/13 generate", config=f"{arch}/FULL/bf16", batch=B,
               prompt=S0, decode_steps=steps, new_tokens=B * (steps + 1),
               prefill_ms=f"{prefill_ms:.2f}",
               decode_ms_per_step=f"{(wall * 1e3 - prefill_ms) / steps:.2f}",
@@ -819,7 +838,7 @@ def phase_generate(torch) -> dict:
             require(res["train_steps_done"] == res["offline_steps"] + 2,
                     f"train steps {res['train_steps_done']} for "
                     f"{res['offline_steps']} offline steps")
-        phase("7/12 generate.serve", config="xlstm-350m/FULL/bf16",
+        phase("7/13 generate.serve", config="xlstm-350m/FULL/bf16",
               share=share, batch=4, requests=200, base_ms=res["base_ms"],
               p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
               served=res["served"], evicted=res["served"] < 200,
@@ -873,13 +892,13 @@ def phase_profile(torch) -> tuple[dict, object, object]:
         atol, rtol = CHECKSUM_TOL[name]
         require(abs(g - w) <= atol + rtol * abs(w),
                 f"{name}: checksum {g} on the card, {w} on the CPU")
-        phase("8/12 profile.exec", workload=name, device="cuda",
+        phase("8/13 profile.exec", workload=name, device="cuda",
               steps=rec.steps_executed,
               wall_ms_per_step=rec.wall_ms_per_step, checksum_card=g,
               checksum_cpu=w, tol=f"atol:{atol},rtol:{rtol}")
     require(got == want, "the card's matrix differs from the CPU-built one "
             "in a field other than the checksums")
-    phase("8/12 profile", suite="smoke", seed=0, pairs=len(card.pairs),
+    phase("8/13 profile", suite="smoke", seed=0, pairs=len(card.pairs),
           cells=sum(len(p["shares"]) for p in card.pairs), schema="clean",
           matrix="equal_to_cpu_but_checksums", launches=counts,
           wall_s=f"{wall:.2f}", cpu_matrix_s=f"{cpu_s:.2f}")
@@ -894,7 +913,7 @@ def phase_profile(torch) -> tuple[dict, object, object]:
             f"bad validation MAE {maes}")
     require(all(p[0]["w"].device.type == "cuda"
                 for p in pred.params_by_type.values()), "predictor not on card")
-    phase("8/12 profile.predictor", device="cuda",
+    phase("8/13 profile.predictor", device="cuda",
           epochs=len(hist["T4"]["val_mae"]),
           **{f"final_val_mae_{gpu}": m for gpu, m in maes.items()},
           seconds=f"{secs:.2f}")
@@ -926,7 +945,7 @@ def phase_train(torch) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    phase("9/12 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
+    phase("9/13 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
           params=cfg.param_count(), losses=losses, step_ms=ms,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     del params, state
@@ -952,7 +971,7 @@ def train_danube(torch) -> None:
     losses = out["losses"]
     require(out["steps_done"] == 5 and not out["interrupted"]
             and all(math.isfinite(v) for v in losses), f"train.run {out}")
-    phase("9/12 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
+    phase("9/13 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
           batch=8, seq=64, params=cfg.param_count(), losses=losses,
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -997,7 +1016,7 @@ def offline_step_breakdown(torch) -> None:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     n = cfg.param_count()
-    phase("9/12 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
+    phase("9/13 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
           batch=4, seq=32, step_ms=[t * 1e3 for t in step_s[1:]],
           grad_ms=[(t - u) * 1e3 for t, u in zip(step_s[1:], update_s[1:])],
           adamw_ms=[u * 1e3 for u in update_s[1:]],
@@ -1041,7 +1060,7 @@ def checkpoint_roundtrip(torch) -> None:
     require(at == 2 and len(pairs) == 4 * len(tree[0]) + 1 and all(
         y.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
         for x, y in pairs), "restored checkpoint differs")
-    phase("9/12 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
+    phase("9/13 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
           leaves=len(pairs), step=at, restored_to="cuda", equal="bitwise")
 
 
@@ -1085,7 +1104,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
         da._library(), dev, q.dtype, H, Hk, d))
     call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
-    phase("10/12 timing", kernel="decode_attention",
+    phase("10/13 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
           ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
           splits=ns, split_len=split_len)
@@ -1099,7 +1118,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - da.decode_attention_plain(
         q, k, v, lens).float()).abs().max())
     library_ms, library_events_ms = graph_ms(torch, sdpa), time_ms(torch, sdpa)
-    phase("10/12 timing", kernel="decode_attention",
+    phase("10/13 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
           ms=ms, events_ms=events_ms, plain_ms=plain_ms,
           library_ms=library_ms, library_events_ms=library_events_ms,
@@ -1110,7 +1129,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
                                          ("gemma", ZOO_DECODE[3])):
         q2, k2, v2, lens2, sdpa2, bound2, by2 = decode_inputs(
             torch, gen, b, skv, h, hk, dh)
-        phase("10/12 timing", kernel="decode_attention", model=name,
+        phase("10/13 timing", kernel="decode_attention", model=name,
               shape=f"B{b}_Skv{skv}_H{h}_Hk{hk}_d{dh}_bf16_kvlen{skv}",
               graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
                   q2, k2, v2, lens2)),
@@ -1167,7 +1186,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             ptxas[f"wgmma_forward_{dp_bk}"] = (
                 f"regs:{r.get('registers')},spill_bytes:"
                 f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/12 timing", kernel="flash_attention", design="wgmma",
+    phase("10/13 timing", kernel="flash_attention", design="wgmma",
           bf16_tile=fa.tile_plan(d), **ptxas)
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v, sdpa, bound_ms, by, flops, nbytes = flash_inputs(torch, gen,
@@ -1180,7 +1199,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - fa.flash_attention_cuda(
         q, k, v, causal=causal).float()).abs().max())
     library_ms = time_ms(torch, sdpa)
-    phase("10/12 timing", kernel="flash_attention",
+    phase("10/13 timing", kernel="flash_attention",
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal", ms=ms,
           plain_ms=plain_ms, library_ms=library_ms,
           library_vs_kernel_max_abs_diff=f"{library_err:.3e}",
@@ -1191,7 +1210,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
         q2, k2, v2, sdpa2, bound2, by2, flops2, nbytes2 = flash_inputs(
             torch, gen, shape)
         B2, Sq2, _, H2, Hk2, d2, _, window2 = shape
-        phase("10/12 timing", kernel="flash_attention", model=name,
+        phase("10/13 timing", kernel="flash_attention", model=name,
               shape=f"B{B2}_S{Sq2}_H{H2}_Hk{Hk2}_d{d2}_bf16_causal"
               + (f"_w{window2}" if window2 else ""),
               bf16_tile=fa.tile_plan(d2), graph_ms=graph_ms(
@@ -1229,7 +1248,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         ptxas[f"N{n}_L{lanes}"] = (
             f"regs:{r.get('registers')},spill_bytes:"
             f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/12 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
+    phase("10/13 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
     shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
@@ -1240,7 +1259,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
         events_ms = time_ms(torch, call)
         clock = sm_clock()
-        phase("10/12 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+        phase("10/13 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
               ms=events_ms, sm_clock_mhz=clock,
               graph_ms=graph_ms(torch, call))
     plan = ss.lane_plan(B, di, N,
@@ -1259,7 +1278,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("10/12 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+    phase("10/13 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
           channels_per_block=plan.channels, blocks=plan.blocks,
           busiest_sm_channels=plan.busiest,
           mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
@@ -1276,10 +1295,11 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
             "bound_by": by, "library_ms": None}
 
 
-# phase 11: the paper's deployment ("more than 20,000 GPUs") over 4 h of
-# SimConfig's 12 h (480 ticks, 16 scheduling rounds), cut so that phase 12
-# runs its campaign over the whole 12 h within the script's time
-FLEET = dict(n_devices=20000, horizon_s=4 * 3600.0, trace="B", tick_s=30.0,
+# phase 11: the paper's deployment ("more than 20,000 GPUs") over 2 h of
+# SimConfig's 12 h (240 ticks, 8 scheduling rounds), cut so that phase 12
+# runs its campaign over the whole 12 h, and phase 13 its durable legs,
+# within the script's time
+FLEET = dict(n_devices=20000, horizon_s=2 * 3600.0, trace="B", tick_s=30.0,
              schedule_interval_s=900.0, seed=0)
 # every branch of the tick core fires (tests/test_engine_xla.py:53's faults)
 FLEET_FAULTS = dict(n_devices=200, horizon_s=2 * 3600.0, trace="D", seed=11,
@@ -1410,7 +1430,7 @@ def fleet_line(name: str, engine: str, run: dict, **extra) -> None:
                       predictor_ms_max=f"{max(ms):.3f}")
     fields["phases_s"] = json.dumps({k: round(v, 3) for k, v in
                                      sorted(run["phases_s"].items())})
-    phase(f"11/12 fleet.{name}", engine=engine, **fields, **extra)
+    phase(f"11/13 fleet.{name}", engine=engine, **fields, **extra)
 
 
 def engine_profile(torch, sim, ticks: int = 30) -> None:
@@ -1444,7 +1464,7 @@ def engine_profile(torch, sim, ticks: int = 30) -> None:
                       idle_share=f"{1.0 - busy / wall_ms:.3f}")
     else:
         fields.update(device_busy_ms="not measured (no device events)")
-    phase("11/12 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
+    phase("11/13 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
           **fields)
 
 
@@ -1470,7 +1490,7 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
                    device=("cuda" if engine == "torch" else "host"),
                    n_devices=FLEET["n_devices"],
                    horizon_h=FLEET["horizon_s"] / 3600.0,
-                   cut="4 h of SimConfig's 12 h")
+                   cut="2 h of SimConfig's 12 h")
     require(runs["numpy"]["json"] == runs["torch"]["json"],
             "SimResults differ between the numpy and torch engines")
     engine_profile(torch, runs["torch"]["sim"])
@@ -1493,7 +1513,7 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
               for t, f, _ in calls)
     require(err <= PREDICTOR_TOL,
             f"card predictions off the CPU's by {err} > {PREDICTOR_TOL}")
-    phase("11/12 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
+    phase("11/13 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
           gpu_types=sorted({str(t) for t, _, _ in calls}), max_abs_err=err,
           tol=PREDICTOR_TOL, matmul_precision=repr(
               torch.get_float32_matmul_precision()),
@@ -1538,14 +1558,19 @@ CONTROL = dict(scenario="diurnal-mixed", n_devices=20000)
 CONTROL_PROFILED_TICKS = 30
 
 
+def timer(phases: Phases, label: str):
+    """A wrapper that times every call of a function into `phases`."""
+    def wrap(inner):
+        def call(*args, **kw):
+            with phases.phase(label):
+                return inner(*args, **kw)
+        return call
+    return wrap
+
+
 def timed_method(obj, name: str, phases: Phases, label: str) -> None:
     """Time every call of `obj.name` into `phases` under `label`."""
-    inner = getattr(obj, name)
-
-    def call(*args, **kw):
-        with phases.phase(label):
-            return inner(*args, **kw)
-    setattr(obj, name, call)
+    setattr(obj, name, timer(phases, label)(getattr(obj, name)))
 
 
 def control_run(torch, sc, predictor, engine: str) -> dict:
@@ -1595,18 +1620,29 @@ def control_run(torch, sc, predictor, engine: str) -> dict:
     return out
 
 
+def run_cli_plain(torch, argv: list) -> tuple[int, float, str]:
+    """`python -m repro_torch <argv>` in-process with its stderr captured;
+    returns the exit code, the wall seconds and the stderr text."""
+    import io
+
+    from repro_torch import cli
+    err = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t, err.getvalue()
+
+
 def run_cli(torch, argv: list) -> tuple[dict, float]:
     """`python -m repro_torch <argv>` in-process, its report written to a
     temporary file; returns the report and the wall seconds."""
     import tempfile
 
-    from repro_torch import cli
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "report.json")
-        t = time.perf_counter()
-        rc = cli.main([*argv, "--out", path])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        rc, wall, err = run_cli_plain(torch, [*argv, "--out", path])
+        sys.stderr.write(err)
         require(rc == 0, f"{argv}: exit code {rc}")
         with open(path) as f:
             return json.load(f), wall
@@ -1616,7 +1652,7 @@ def phase_control(torch) -> dict:
     """MuxFlow's control plane at 20,000 GPUs on both engines, byte for
     byte, then the front door's `sim` and `serve` on three scenarios.
     Returns the kernels' launch counts of this path (the calibrated run's
-    matrix)."""
+    matrix) and the torch run's ms a tick."""
     from repro_torch.cluster.control import check_schema
     from repro_torch.cluster.fleet import FleetSpec
     from repro_torch.cluster.scenario import scenario_by_name
@@ -1634,7 +1670,7 @@ def phase_control(torch) -> dict:
     require(all(p[0]["w"].device.type == "cuda"
                 for p in predictor.params_by_type.values()),
             "the predictor is not on the card")
-    phase("12/12 control.predictor", device="cuda", policy=sc.policy,
+    phase("12/13 control.predictor", device="cuda", policy=sc.policy,
           samples=sc.predictor_samples, epochs=sc.predictor_epochs,
           seconds=f"{time.perf_counter() - t:.2f}")
     runs = {engine: control_run(torch, sc, predictor, engine)
@@ -1651,7 +1687,7 @@ def phase_control(torch) -> dict:
             and math.isfinite(f["propagation_rate"]),
             f"implausible campaign report {s}")
     for engine, run in runs.items():
-        phase("12/12 control.diurnal-mixed", engine=engine,
+        phase("12/13 control.diurnal-mixed", engine=engine,
               device=("cuda" if engine == "torch" else "host"),
               n_devices=sc.n_devices, hours=sc.hours, tick_s=sc.tick_s,
               wall_s=f"{run['head_s'] + run['tail_s']:.2f}",
@@ -1659,7 +1695,7 @@ def phase_control(torch) -> dict:
               split_s=json.dumps({k: round(v, 3) for k, v in
                                   sorted(run["split_s"].items())}),
               **run.get("profiled", {}))
-    phase("12/12 control.report", scenario=sc.name, engines="numpy==torch",
+    phase("12/13 control.report", scenario=sc.name, engines="numpy==torch",
           bytes=len(canon["numpy"]), schema="clean",
           gpu_util=s["gpu_util"], sm_activity=s["sm_activity"],
           oversold_gpu=s["oversold_gpu"], avg_slowdown=s["avg_slowdown"],
@@ -1680,7 +1716,7 @@ def phase_control(torch) -> dict:
             f"(phase 8's matrix is not reused): {counts}")
     require(not check_schema(rep) and rep["sim"]["n_finished"] > 0,
             "calibrated: bad report")
-    phase("12/12 control.calibrated", n_devices=rep["scenario"]["n_devices"],
+    phase("12/13 control.calibrated", n_devices=rep["scenario"]["n_devices"],
           matrix="built on the card", launches=counts,
           gpu_util=rep["sim"]["gpu_util"],
           avg_slowdown=rep["sim"]["avg_slowdown"],
@@ -1692,10 +1728,10 @@ def phase_control(torch) -> dict:
             "serving-slo: bad report")
     for svc, row in sorted(serving["services"].items()) + [
             ("total", serving["total"])]:
-        phase("12/12 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
+        phase("12/13 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
               p99_ms=row["p99_ms"], slo_attainment=row["slo_attainment"],
               shed=row["shed"], arrived=row["arrived"])
-    phase("12/12 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
+    phase("12/13 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
           hours=rep["scenario"]["hours"], wall_s=f"{wall:.2f}")
 
     rep, wall = run_cli(torch, ["sim", "--scenario", "chaos-storm"])
@@ -1703,12 +1739,304 @@ def phase_control(torch) -> dict:
     require(not check_schema(rep) and res["injected"] > 0
             and res["unmatched"] == 0,
             f"chaos-storm: unpaired faults {res['unmatched_by_kind']}")
-    phase("12/12 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
+    phase("12/13 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
           injected=res["injected"], recovered=res["recovered"],
           unmatched=res["unmatched"],
           injected_by_kind=json.dumps(res["injected_by_kind"]),
           wall_s=f"{wall:.2f}")
-    return counts
+    return {"launches": counts,
+            "torch_ms_per_tick": runs["torch"]["ms_per_tick"]}
+
+
+# ------------------------------------------------------------------ phase 13
+# phase 13: diurnal-mixed at 20,000 devices over 6 h of its 12 h (720
+# ticks), cut so that the script stays near 240 s; the kill falls between
+# the snapshots at ticks 480 and 540, after the pruning of old ones began,
+# and `inspect` restores the kept snapshot at 600 and replays 30 ticks
+DURABLE = dict(scenario="diurnal-mixed", n_devices=20000, hours=6,
+               metrics_every=600, snapshot_every=1800, kill_tick=500,
+               inspect_tick=630)
+OBS_FILES = ("report.json", "metrics.jsonl", "trace.jsonl", "metrics.prom",
+             "incidents.jsonl")
+
+
+def durable_argv(d: str, snapshot_every: float) -> list:
+    """Every obs flag and --durable, all outputs under `d`."""
+    def at(name):
+        return os.path.join(d, name)
+    return ["--metrics-out", at("metrics.jsonl"),
+            "--trace-out", at("trace.jsonl"),
+            "--prom-out", at("metrics.prom"),
+            "--alerts-out", at("incidents.jsonl"),
+            "--durable", at("run"), "--snapshot-every", str(snapshot_every),
+            "--out", at("report.json")]
+
+
+def dir_bytes(d: str, names=None) -> dict:
+    names = sorted(os.listdir(d)) if names is None else names
+    out = {}
+    for name in names:
+        path = os.path.join(d, name)
+        if os.path.isfile(path):
+            with open(path, "rb") as f:
+                out[name] = f.read()
+    return out
+
+
+@contextlib.contextmanager
+def wrapped(cls, name: str, wrap):
+    """Replace `cls.name` by `wrap(original)` for the block."""
+    inner = getattr(cls, name)
+    setattr(cls, name, wrap(inner))
+    try:
+        yield
+    finally:
+        setattr(cls, name, inner)
+
+
+def phase_durable(torch, control: dict) -> None:
+    """The observability and durability planes over the card's tick engine:
+    `diurnal-mixed` at 20,000 devices through `sim` with every obs flag and
+    --durable; the same run killed at a tick between two snapshots and
+    resumed in a fresh process, byte-equal; `inspect`; `serve` durable on
+    both engines, byte-equal; `chaos` on the card."""
+    import tempfile
+
+    from repro_torch.chaos.harness import _SimulatedKill
+    from repro_torch.cluster.control import check_schema
+    from repro_torch.durability.runner import DurableRun
+    from repro_torch.durability.store import JsonlEventStore
+    from repro_torch.obs.alerts import AlertEngine
+    from repro_torch.obs.export import lint_prometheus
+    from repro_torch.obs.metrics import FleetMetricsRecorder
+    from repro_torch.obs.trace import EventBusTracer
+    D = DURABLE
+    sim = ["sim", "--scenario", D["scenario"], "--devices",
+           str(D["n_devices"]), "--hours", str(D["hours"]), "--engine",
+           "torch",
+           "--metrics-every", str(D["metrics_every"]), "--profile-phases"]
+    with tempfile.TemporaryDirectory() as work:
+        a, c = os.path.join(work, "A"), os.path.join(work, "C")
+        os.makedirs(a)
+        os.makedirs(c)
+
+        # 1. the uninterrupted run, its layers timed
+        parts = Phases()
+        tick_at: dict[int, float] = {}
+
+        def record_ticks(inner):
+            def make(self):
+                cb = inner(self)
+
+                def each(ticks_done, t):
+                    cb(ticks_done, t)
+                    tick_at[ticks_done] = time.perf_counter()
+                return each
+            return make
+
+        with contextlib.ExitStack() as stack:
+            for cls, name, label in (
+                    (JsonlEventStore, "append", "wal_append"),
+                    (DurableRun, "_snapshot", "snapshot"),
+                    (FleetMetricsRecorder, "on_tick", "metrics"),
+                    (EventBusTracer, "_on_event", "trace"),
+                    (AlertEngine, "on_window", "alerts")):
+                stack.enter_context(wrapped(cls, name, timer(parts, label)))
+            stack.enter_context(wrapped(DurableRun, "_tick_callback",
+                                        record_ticks))
+            rc, wall, err = run_cli_plain(
+                torch, sim + durable_argv(a, D["snapshot_every"]))
+        require(rc == 0, f"durable sim: exit code {rc}\n{err}")
+        with open(os.path.join(a, "report.json")) as f:
+            rep = json.load(f)
+        require(not check_schema(rep), f"report schema: {check_schema(rep)}")
+        # the bus delivered every event to the WAL, its sink
+        ev = rep["events"]
+        require(ev["sink_events"] == ev["n_events"] and not ev["sink_dropped"],
+                f"WAL sink events {ev}")
+        with open(os.path.join(a, "metrics.prom")) as f:
+            lint = lint_prometheus(f.read())
+        require(not lint, f"Prometheus lint: {lint}")
+        rc, _, verr = run_cli_plain(torch, [
+            "sim", "--verify-manifest", os.path.join(a, "run",
+                                                     "manifest.json")])
+        require(rc == 0 and "manifest OK" in verr, f"manifest: {verr}")
+        n = int(round(rep["scenario"]["hours"] * 3600.0
+                      / rep["scenario"]["tick_s"]))
+        every = int(round(D["snapshot_every"] / rep["scenario"]["tick_s"]))
+        events = rep["events"]["n_events"]
+        snaps = sorted(os.listdir(os.path.join(a, "run", "snapshots")))
+        snap_bytes = [os.path.getsize(os.path.join(a, "run", "snapshots",
+                                                   s)) for s in snaps]
+        for line in err.splitlines():
+            if line.startswith("[phases]") and "phase" not in line[9:15]:
+                name, *vals = line[9:].split()
+                phase("13/13 durable.phases", phase=name, wall_s=vals[0],
+                      **({"share": vals[1], "calls": vals[2]}
+                         if len(vals) == 3 else {}))
+        obs = rep["obs"]
+        phase("13/13 durable.run", scenario=D["scenario"],
+              n_devices=D["n_devices"], hours=rep["scenario"]["hours"],
+              engine="torch", device="cuda", ticks=n,
+              wall_s=f"{wall:.2f}", ms_per_tick=f"{wall * 1e3 / n:.3f}",
+              phase12_torch_ms_per_tick=(
+                  f"{control['torch_ms_per_tick']:.3f}"),
+              ratio_to_phase12=(
+                  f"{wall * 1e3 / n / control['torch_ms_per_tick']:.3f}"),
+              parts_s=json.dumps({k: round(v, 3)
+                                  for k, v in sorted(parts.s.items())}),
+              schema="clean", prom_lint="clean", manifest="OK")
+        phase("13/13 durable.wal", backend="jsonl", events=events,
+              events_per_s=f"{events / wall:.1f}",
+              append_us=f"{parts.s['wal_append'] * 1e6 / events:.2f}",
+              metrics_rows=obs["metrics"]["rows"],
+              metrics_windows=obs["metrics"]["windows"],
+              trace_rows=obs["trace"]["rows"],
+              incidents=rep["incidents"]["total"])
+        n_snap = n // every - (1 if n % every == 0 else 0)
+        phase("13/13 durable.snapshots", taken=n_snap, kept=len(snaps),
+              every_ticks=every,
+              bytes_each=json.dumps(dict(zip(snaps, snap_bytes))),
+              ms_each=f"{parts.s['snapshot'] * 1e3 / n_snap:.1f}")
+
+        # 2. the same run killed at a tick between two snapshots, resumed
+        # in a fresh process (which retrains the predictor on the card)
+        kill = D["kill_tick"]
+        require(kill % every and kill > 4 * every,
+                "the kill tick must lie between two snapshots, after the "
+                "pruning of old ones has begun")
+        dead = []
+
+        def kill_at(inner):
+            def make(self):
+                cb = inner(self)
+
+                def each(ticks_done, t):
+                    cb(ticks_done, t)
+                    if ticks_done >= kill:
+                        dead.append(self)
+                        raise _SimulatedKill()
+                return each
+            return make
+
+        t = time.perf_counter()
+        try:
+            with wrapped(DurableRun, "_tick_callback", kill_at):
+                run_cli_plain(torch, sim + durable_argv(
+                    c, D["snapshot_every"]))
+            require(False, "the durable run was not killed")
+        except _SimulatedKill:
+            pass
+        killed_s = time.perf_counter() - t
+        dead.pop().store.abandon()
+        gc.collect()       # no handle of the dead run outlives it
+        require(not os.path.exists(os.path.join(c, "report.json")),
+                "the killed run wrote a report")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [SRC] + [p for p in [env.get("PYTHONPATH")] if p])
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "sim", "--resume",
+             os.path.join(c, "run")], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        resume_s = time.perf_counter() - t
+        require(proc.returncode == 0,
+                f"resume: exit code {proc.returncode}\n{proc.stderr}")
+        origin = (kill // every) * every
+        require(f"from tick {origin}:" in proc.stderr,
+                f"resume did not start at tick {origin}: {proc.stderr}")
+        cli_wall = re.search(r"\(([0-9.]+)s wall", proc.stderr)
+        got, want = dir_bytes(c, OBS_FILES), dir_bytes(a, OBS_FILES)
+        require(sorted(got) == sorted(OBS_FILES),
+                f"the resumed run wrote {sorted(got)}")
+        differ = [k for k in OBS_FILES if got[k] != want[k]]
+        rc, _, derr = run_cli_plain(torch, [
+            "diff", os.path.join(a, "run"), os.path.join(c, "run"),
+            "--out", os.path.join(work, "diff.json")])
+        require(not differ and rc == 0,
+                f"the resumed run differs from the uninterrupted one in "
+                f"{differ}; diff exit {rc}: {derr}")
+        rc, _, verr = run_cli_plain(torch, [
+            "sim", "--verify-manifest", os.path.join(c, "run",
+                                                     "manifest.json")])
+        require(rc == 0, f"resumed manifest: {verr}")
+        live_s = tick_at[n] - tick_at[origin]
+        phase("13/13 durable.resume", killed_at_tick=kill,
+              resumed_from_tick=origin, ticks_replayed=n - origin,
+              killed_run_s=f"{killed_s:.2f}",
+              resume_process_s=f"{resume_s:.2f}",
+              resume_cli_wall_s=(cli_wall.group(1) if cli_wall
+                                 else "not printed"),
+              live_s_same_ticks=f"{live_s:.2f}",
+              bytes_equal=",".join(OBS_FILES), diff="identical",
+              manifest="OK")
+
+        # 3. time travel to a tick of the uninterrupted run
+        rc, wall, err = run_cli_plain(torch, [
+            "inspect", os.path.join(a, "run"), "--tick",
+            str(D["inspect_tick"]), "--out",
+            os.path.join(work, "inspect.json")])
+        require(rc == 0, f"inspect: exit code {rc}\n{err}")
+        with open(os.path.join(work, "inspect.json")) as f:
+            doc = json.load(f)
+        require(doc["tick"] == D["inspect_tick"]
+                and doc["devices"]["total"] == D["n_devices"],
+                f"inspect: {doc['tick']}, {doc['devices']}")
+        for line in err.strip().splitlines():
+            phase("13/13 durable.inspect", line=repr(line))
+        phase("13/13 durable.inspect", tick=D["inspect_tick"],
+              wall_s=f"{wall:.2f}")
+
+        # 4. serve durable on both engines: every artifact byte-equal
+        out = {}
+        for engine in ("numpy", "torch"):
+            d = os.path.join(work, f"serve-{engine}")
+            os.makedirs(d)
+            rc, wall, err = run_cli_plain(torch, [
+                "serve", "--scenario", "serving-slo", "--engine", engine,
+                "--metrics-every", str(D["metrics_every"])]
+                + durable_argv(d, D["snapshot_every"]))
+            require(rc == 0, f"serve {engine}: exit code {rc}\n{err}")
+            out[engine] = (dir_bytes(d), dir_bytes(
+                os.path.join(d, "run", "events")), wall)
+        require(out["numpy"][:2] == out["torch"][:2],
+                "serving-slo's artifacts differ between the engines")
+        with open(os.path.join(work, "serve-torch", "report.json")) as f:
+            rep = json.load(f)
+        phase("13/13 durable.serve", scenario="serving-slo",
+              n_devices=rep["scenario"]["n_devices"],
+              hours=rep["scenario"]["hours"], engines="numpy==torch",
+              files=",".join(sorted(out["torch"][0])),
+              wal_segments=",".join(sorted(out["torch"][1])),
+              events=rep["events"]["n_events"],
+              slo_attainment=rep["serving"]["total"]["slo_attainment"],
+              wall_s=json.dumps({e: round(v[2], 2)
+                                 for e, v in out.items()}))
+
+        # 5. the chaos harness on the card
+        path = os.path.join(work, "verdict.json")
+        rc, wall, err = run_cli_plain(torch, [
+            "chaos", "--scenario", "chaos-storm", "--engine", "torch",
+            "--workdir", os.path.join(work, "chaos"), "--out", path])
+        with open(path) as f:
+            verdict = json.load(f)
+        names = {i["name"]: i["ok"] for i in verdict["invariants"]}
+        require(rc == 0 and verdict["ok"]
+                and names.get("store-retry-ladder")
+                and names.get("recovery-byte-identity"),
+                f"chaos: exit code {rc}, invariants {names}")
+        for inv in verdict["invariants"]:
+            phase("13/13 durable.chaos", invariant=inv["name"],
+                  result="PASS" if inv["ok"] else "FAIL",
+                  detail=repr(inv["detail"]))
+        res = verdict["resilience"]
+        phase("13/13 durable.chaos", scenario="chaos-storm", engine="torch",
+              device="cuda", injected=res["injected"],
+              recovered=res["recovered"],
+              store_faults=res["ladder"]["store_faults"],
+              store_retries=res["ladder"]["store_retries"],
+              wall_s=f"{wall:.2f}")
 
 
 def main() -> int:
@@ -1749,8 +2077,10 @@ def main() -> int:
     timed("train", phase_train, torch)
     kernels = timed("timing", phase_timing, torch, launches, max_err)
     timed("fleet", phase_fleet, torch, card_matrix, predictor)
-    for kernel, n in timed("control", phase_control, torch).items():
+    control = timed("control", phase_control, torch)
+    for kernel, n in control["launches"].items():
         next(k for k in kernels if k["name"] == kernel)["launches"] += n
+    timed("durable", phase_durable, torch, control)
     phase("seconds", **seconds, total=f"{sum(seconds.values()):.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

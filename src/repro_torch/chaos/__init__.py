@@ -7,10 +7,11 @@ Public surface:
   into :class:`repro_torch.cluster.control.ControlPlane` via ``Scenario.chaos``.
 - :class:`FaultInjector` / :class:`ScriptedInjector` — the seam protocol
   and a hand-scripted stub for unit tests.
+- ``run_chaos_verification`` (in :mod:`repro_torch.chaos.harness`, imported
+  lazily to keep this package import-light) — the invariant harness
+  behind ``python -m repro_torch chaos``.
 
-Copied from `repro/chaos`.  `repro`'s invariant harness
-(``chaos/harness.py``, behind ``python -m repro chaos``) needs the
-durability plane and is not ported yet (ROADMAP §1 item 3.3).
+Copied from `repro/chaos` with the same behaviour.
 """
 from repro_torch.chaos.campaign import (CHAOS_KINDS, CHAOS_SCHEMA,
                                         ChaosCampaign, ChaosConfig)

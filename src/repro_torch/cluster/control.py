@@ -22,10 +22,7 @@ Copied from `repro/cluster/control.py`; under one predictor both packages
 give byte-equal reports.  What the port adds is ``device=`` (where the
 predictor trains, the torch tick engine runs and a measured policy builds
 its matrix: the CUDA card unless ``"cpu"``), kept out of the scenario like
-``obs`` so that the scenario echo is the same on every machine.  The
-observability plane is not ported yet: ``obs`` must be ``None``, and the
-report's ``obs`` and ``incidents`` sections are ``null``, as `repro`'s are
-when no observability output is asked for.
+``obs`` so that the scenario echo is the same on every machine.
 """
 from __future__ import annotations
 
@@ -45,6 +42,7 @@ from repro_torch.core.interference import ONLINE_SERVICE_PROFILES
 from repro_torch.core.simulator import (ClusterSim, SimConfig, SimHooks,
                                         build_sim_config)
 from repro_torch.core.traces import SERVICES, make_trace
+from repro_torch.obs import ALERTS_SCHEMA, OBS_SCHEMA, ObsPlane
 from repro_torch.policies import resolve as resolve_policy
 from repro_torch.serving_plane import SERVING_SCHEMA, ServingPlane
 
@@ -183,10 +181,6 @@ class ControlPlane:
 
     def __init__(self, scenario: Scenario, predictor=None, obs=None,
                  device=None):
-        if obs is not None:
-            raise NotImplementedError(
-                "the observability plane is not ported yet (ROADMAP §1 "
-                "item 3.2); pass obs=None")
         sc = scenario
         self.scenario = sc
         self.bus = EventBus(keep_log=sc.keep_event_log)
@@ -280,6 +274,14 @@ class ControlPlane:
                 self.agents.fault_injector = self.chaos
             if self.serving is not None:
                 self.serving.fault_injector = self.chaos
+        # observability plane: an ObsConfig, deliberately NOT a Scenario
+        # field — output paths are machine-local and the scenario echo in
+        # the report must stay byte-identical across machines.  Enabling
+        # obs never changes the report outside its own "obs" section.
+        self.obs = None
+        if obs is not None and obs.enabled:
+            self.obs = ObsPlane(obs, self.sim, bus=self.bus,
+                                serving=self.serving)
         self.last_telemetry: dict = {}
         self.results = None
         self._t_end = 0.0
@@ -325,6 +327,8 @@ class ControlPlane:
         if stop_tick is not None:
             return None
         self.results = sim.finalize(t)
+        if self.obs is not None:
+            self.obs.finalize(t)
         return self.results
 
     def _submit_due(self, t: float) -> None:
@@ -392,8 +396,10 @@ class ControlPlane:
             "pools": self.sim.pool_view(self._t_end),
             "scheduler": self._scheduler_telemetry(),
             "events": self.bus.summary(),
-            "obs": None,
-            "incidents": None,
+            "obs": (self.obs.summary()
+                    if self.obs is not None else None),
+            "incidents": (self.obs.incidents_summary()
+                          if self.obs is not None else None),
             "resilience": (self.chaos.summary()
                            if self.chaos is not None else None),
         }
@@ -437,8 +443,9 @@ def run_scenario(name_or_scenario, predictor=None, obs=None, device=None,
 
     ``name_or_scenario`` is a registry name or a :class:`Scenario`;
     ``overrides`` replace scenario fields (None values are ignored);
-    ``device`` places the card work (None: the CUDA card); ``obs`` must be
-    None until the observability plane is ported."""
+    ``obs`` is an optional :class:`repro_torch.obs.ObsConfig` (metrics/
+    trace/Prometheus outputs and phase profiling — never a scenario field);
+    ``device`` places the card work (None: the CUDA card)."""
     sc = (scenario_by_name(name_or_scenario)
           if isinstance(name_or_scenario, str) else name_or_scenario)
     sc = sc.with_overrides(**overrides)

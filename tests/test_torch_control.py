@@ -104,10 +104,18 @@ def test_engines_give_equal_reports(name, predictor):
     assert canon(got) == canon(want)
 
 
-def test_obs_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="3.2"):
-        t_ctl.ControlPlane(SCENARIOS["smoke"], predictor=NumpyPredictor(),
-                           obs=object(), device="cpu")
+def test_obs_is_accepted_and_neutral_to_the_report(predictor, tmp_path):
+    from repro_torch.obs import ObsConfig
+    obs = ObsConfig(metrics_out=str(tmp_path / "m.jsonl"),
+                    alerts_out=str(tmp_path / "i.jsonl"))
+    on = t_ctl.run_scenario("smoke", predictor=predictor, device="cpu",
+                            obs=obs, **SMALL)
+    off = t_ctl.run_scenario("smoke", predictor=predictor, device="cpu",
+                             **SMALL)
+    assert on["obs"]["metrics"]["rows"] > 0 and on["incidents"] is not None
+    assert t_ctl.check_schema(on) == []
+    on.update(obs=None, incidents=None)
+    assert canon(on) == canon(off)
 
 
 # ----------------------------------------- arrivals and the autoscaler
@@ -192,12 +200,15 @@ def test_cli_check_schema(command, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("command", ["sim", "serve"])
-def test_cli_refuses_to_run_without_a_card(command, monkeypatch):
+def test_cli_refuses_to_run_without_a_card(command, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main([command, "--scenario", "mig-partition", *FRONT])
-    with pytest.raises(SystemExit):
-        cli.main([command, "--device", "cpu", "--metrics-out", "m.jsonl"])
+    metrics = tmp_path / "m.jsonl"
+    assert cli.main([command, "--device", "cpu", "--scenario",
+                     "mig-partition", *FRONT, "--metrics-out",
+                     str(metrics)]) == 0
+    assert metrics.read_text().startswith('{"kind":"header"')
 
 
 # ------------------------------------------------------------------ the card

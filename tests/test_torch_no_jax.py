@@ -2,9 +2,11 @@
 imports `jax` or `repro`; every module imports without them; and the entry
 points refuse to run on the CPU unless asked to."""
 import ast
+import builtins
 import os
 import shutil
 import subprocess
+import symtable
 import sys
 from pathlib import Path
 
@@ -65,7 +67,12 @@ def test_every_module_imports_without_jax_or_repro():
         "       'cluster.jobs', 'cluster.fleet', 'cluster.faults',\n"
         "       'cluster.agents', 'cluster.scenario', 'cluster.control',\n"
         "       'serving_plane.admission', 'serving_plane.plane', 'chaos',\n"
-        "       'chaos.injector', 'chaos.campaign')}\n"
+        "       'chaos.injector', 'chaos.campaign', 'chaos.harness',\n"
+        "       'obs', 'obs.export', 'obs.phases', 'obs.metrics',\n"
+        "       'obs.trace', 'obs.alerts', 'obs.plane', 'durability',\n"
+        "       'durability.store', 'durability.manifest',\n"
+        "       'durability.snapshot', 'durability.runner',\n"
+        "       'durability.inspect', 'durability.diff', 'api')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
@@ -76,16 +83,45 @@ def test_every_module_imports_without_jax_or_repro():
     assert int(proc.stdout.strip()) >= 35
 
 
+def _read_globals(table, top):
+    """Names a scope reads from the module's globals."""
+    for sym in table.get_symbols():
+        if sym.is_referenced() and (table is top or sym.is_global()):
+            yield sym.get_name()
+    for child in table.get_children():
+        yield from _read_globals(child, top)
+
+
+def test_no_module_reads_an_unbound_global():
+    """Every global name a module of the port (or chip_smoke.py) reads is
+    bound in that module or is a builtin: a name copied in use but not in
+    definition raises NameError only on the path that reads it."""
+    known = set(dir(builtins)) | {"__file__", "__name__", "__path__",
+                                  "__spec__", "__doc__"}
+    bad = {}
+    for path in _port_files():
+        top = symtable.symtable(path.read_text(), str(path), "exec")
+        bound = {s.get_name() for s in top.get_symbols()
+                 if s.is_assigned() or s.is_imported() or s.is_namespace()}
+        missing = set(_read_globals(top, top)) - bound - known
+        if missing:
+            bad[str(path.relative_to(ROOT))] = sorted(missing)
+    assert not bad, bad
+
+
 def test_entry_points_refuse_cpu_without_asking(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     from repro_torch import resolve_device
+    from repro_torch.chaos.harness import run_chaos_verification
     from repro_torch.checkpoint import restore, save
     from repro_torch.cli import main as cli_main
     from repro_torch.cluster.control import run_scenario
+    from repro_torch.cluster.scenario import scenario_by_name
     from repro_torch.configs import get_config
     from repro_torch.core.predictor import build_speed_predictor
     from repro_torch.core.simulator import run_policy
+    from repro_torch.durability import run_durable
     from repro_torch.launch.serve import run
     from repro_torch.launch.train import run as train_run
     from repro_torch.models import init_cache
@@ -125,6 +161,17 @@ def test_entry_points_refuse_cpu_without_asking(tmp_path, monkeypatch):
         lambda: cli_main(["sim", "--scenario", "mig-partition",
                           "--engine", "numpy", "--devices", "8"]),
         lambda: cli_main(["serve", "--devices", "8", "--hours", "0.1"]),
+        lambda: cli_main(["sim", "--scenario", "mig-partition",
+                          "--devices", "8", "--durable",
+                          str(tmp_path / "run")]),
+        lambda: cli_main(["chaos", "--devices", "8",
+                          "--workdir", str(tmp_path / "w")]),
+        lambda: run_durable(scenario_by_name("smoke").with_overrides(
+            engine="torch", n_devices=8, hours=0.1), str(tmp_path / "d"),
+            predictor=NumpyPredictor()),
+        lambda: run_chaos_verification("chaos-storm", engine="torch",
+                                       workdir=str(tmp_path / "c"),
+                                       predictor=NumpyPredictor()),
     ]
     for fn in refused:
         with pytest.raises(RuntimeError, match="device='cpu'"):
