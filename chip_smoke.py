@@ -8,7 +8,8 @@ Phases, one line each (or more); any failure raises and exits non-zero:
   2. build    every kernel under src/repro_torch/kernels/csrc, one nvcc each,
               all started together;
   3. kernels  each kernel against its plain PyTorch version run in fp32 on
-              the same inputs, on the card: the test sweeps, the profiling
+              the same inputs, on the card (phase 14's shapes too: d 64 with
+              G 1 and 2, non-causal, Sq != Skv): the test sweeps, the profiling
               catalog's shapes and full width (decode: mistral-nemo-12b at
               B8/Skv4096, h2o-danube-1.8b's d 80, G 4 at B8/Skv4096 and at
               short caches, h2o-danube-3-4b's d 120, G 4 and gemma-7b's
@@ -37,7 +38,9 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               multiplexer); 24 launches per decode step, at least one offline
               step, and the train step counter at offline steps + 2;
   7. generate `greedy_generate` in bf16 FULL, one model at a time:
-              mistral-nemo-12b (batch 2, a 2048-token prompt),
+              mistral-nemo-12b (batch 2, a 2048-token prompt; 10 of its
+              40 layers, since phase 14's pixtral-12b runs that backbone
+              at full depth),
               h2o-danube-3-4b (batch 1, 5120 tokens: past its 4096 window,
               so decode runs on the ring the prefill aligned), gemma-7b
               (batch 1, 1024 tokens) and xlstm-350m (batch 2, 512 tokens);
@@ -66,7 +69,10 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               lanes a channel `lane_plan` chose, ptxas's registers and
               spills for each template, and one line for each L it takes;
               then the attention kernels and SDPA at phase 7's new shapes
-              (d 120 and d 256), in CUDA graphs, each beside its bound;
+              (d 120 and d 256) and phase 14's (d 64 decode at G 1 and 2;
+              flash for seamless-m4t-medium's encoder, cross and self
+              attention, granite-moe-1b-a400m and pixtral-12b), in CUDA
+              graphs, each beside its bound;
  11. fleet    MuxFlow's scheduling step at the paper's 20,000 GPUs: phase 8's
               card matrix and card-trained predictor drive
               `run_policy(MeasuredMuxFlowPolicy(matrix=card_matrix), ...)`
@@ -113,6 +119,25 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               the torch engine, every artifact and WAL segment byte-equal;
               `chaos --scenario chaos-storm --engine torch`, every invariant
               passing.
+ 14. zoo      the rest of the GQA model zoo: pixtral-12b (1024 patch
+              embeddings before the tokens), seamless-m4t-medium (a 12-layer
+              encoder over 1024 source frames, cross attention, ReLU) and
+              granite-moe-1b-a400m (32 experts, top 8, grouped dispatch).
+              Parity at SMOKE in fp32, the card against the CPU: prefill
+              logits, 20 decode steps' logits and `greedy_generate`'s
+              tokens for each, and granite's decode at ragged positions and
+              engine tokens under ragged slots.  Then in bf16 at FULL:
+              `greedy_generate` (pixtral-12b B1 x (1024 patches + 1024
+              tokens), seamless-m4t-medium B2 x 512 tokens over 1024
+              frames, granite-moe-1b-a400m B2 x 2048, 31 steps each) with
+              the launches required exactly (flash once a layer, the
+              encoder's and the cross attention's too; decode once a layer
+              a step, twice with cross attention); granite served by
+              `serve.run` alone and with `share=True` and by the engine
+              with ragged requests; granite trained through
+              `launch.train.run` (B2 x 512) and one train step's moe_aux,
+              three AdamW steps of seamless-m4t-medium on batches with
+              source frames, and pixtral-12b's eval step.
 Then one line of each phase's seconds.  The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
@@ -164,6 +189,20 @@ GEN_DECODE = [(1, 4096, 32, 8, 120, 4096), (1, 4096, 32, 8, 120, 1001),
               (1, 1039, 16, 16, 256, 1025), (1, 1039, 16, 16, 256, 1039),
               (2, 2079, 32, 8, 128, [2049, 2049]),
               (2, 2079, 32, 8, 128, [2079, 2064])]
+# (B, Skv, H, Hk, d, kv_len): phase 14's new decode shapes, all d 64:
+# seamless-m4t-medium's cross attention (MHA) over its 1024 source rows and
+# granite-moe-1b-a400m's self attention (G 2) at B8 on a 4096-row cache,
+# ragged and full; then the decode calls of phase 14's generate runs, each
+# at its first and last step: pixtral-12b's 1024 patches + 1024 tokens + 31
+# rows (d 128, G 4), seamless-m4t-medium's 512 + 31 decoder rows and
+# granite-moe-1b-a400m's 2048 + 31
+ZOO2_DECODE = [(2, 1024, 16, 16, 64, 1024), (8, 4096, 16, 8, 64, RAGGED),
+               (8, 4096, 16, 8, 64, 4096)]
+ZOO2_GEN_DECODE = [(1, 2079, 32, 8, 128, 2049), (1, 2079, 32, 8, 128, 2079),
+                   (2, 543, 16, 16, 64, [513, 513]),
+                   (2, 543, 16, 16, 64, [543, 543]),
+                   (2, 2079, 16, 8, 64, [2049, 2049]),
+                   (2, 2079, 16, 8, 64, [2079, 2079])]
 # (B, Sq, Skv, H, Hk, d, causal, window): tests/test_kernels.py:20-26, the
 # catalog's flash-prefill, ragged tiles at d 80, a window without causal, d 256
 FLASH_SHAPES = [
@@ -192,6 +231,16 @@ FLASH_GEMMA = (1, 2048, 2048, 16, 16, 256, True, None)   # gemma-7b
 # phase 7's prefills at their own shapes (h2o-danube-3-4b's is FLASH_DANUBE3)
 GEN_FLASH = [(2, 2048, 2048, 32, 8, 128, True, None),    # mistral-nemo-12b
              (1, 1024, 1024, 16, 16, 256, True, None)]   # gemma-7b
+# phase 14's prefills at their own shapes: seamless-m4t-medium's encoder
+# (non-causal, MHA, d 64, 1024 frames), its cross attention (non-causal,
+# 512 queries on 1024 keys) and its decoder's self attention;
+# granite-moe-1b-a400m (causal, d 64, G 2); pixtral-12b (causal, d 128,
+# G 4, 1024 patches + 1024 tokens)
+ZOO2_FLASH = {"seamless_encoder": (2, 1024, 1024, 16, 16, 64, False, None),
+              "seamless_cross": (2, 512, 1024, 16, 16, 64, False, None),
+              "seamless_self": (2, 512, 512, 16, 16, 64, True, None),
+              "granite": (2, 2048, 2048, 16, 8, 64, True, None),
+              "pixtral": (1, 2048, 2048, 32, 8, 128, True, None)}
 # (B, S, di, N): tests/test_kernels.py:58-62, the catalog's ssm-scan, ragged
 SSM_SHAPES = [(1, 64, 128, 16), (2, 128, 256, 16), (2, 96, 128, 8),
               (2, 64, 128, 8), (1, 100, 70, 4)]
@@ -305,7 +354,7 @@ def phase_device(torch) -> str:
         capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     kind = torch.cuda.get_device_name(0)
-    phase("1/13 device", kind=repr(kind), count=torch.cuda.device_count(),
+    phase("1/14 device", kind=repr(kind), count=torch.cuda.device_count(),
           capability=torch.cuda.get_device_capability(0),
           torch=torch.__version__, cuda=torch.version.cuda)
     return kind
@@ -317,7 +366,7 @@ def phase_build() -> None:
     paths = _build.build(*_build.sources())
     for name in paths:
         _build.load(name)
-    phase("2/13 build", kernels=",".join(paths),
+    phase("2/14 build", kernels=",".join(paths),
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
@@ -345,12 +394,14 @@ def check_decode(torch) -> float:
     cases = [((MAIN["B"], MAIN["Skv"], MAIN["H"], MAIN["Hk"], MAIN["d"]), kv)
              for kv in (RAGGED, 3000)]
     cases += [(s[:5], s[5]) for s in EXTRA_SHAPES + DANUBE_SHAPES
-              + ZOO_DECODE + GEN_DECODE]
+              + ZOO_DECODE + GEN_DECODE + ZOO2_DECODE + ZOO2_GEN_DECODE]
     catalog = {}                  # the profile path's decode-serve shape
     danube = {torch.float32: 0.0, torch.bfloat16: 0.0}
     zoo = {(d, dtype): 0.0 for d in (120, 256)
            for dtype in (torch.float32, torch.bfloat16)}
     generate = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    zoo2 = {(name, dtype): 0.0 for name in ("cross", "granite", "generate")
+            for dtype in (torch.float32, torch.bfloat16)}
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for i, ((B, Skv, H, Hk, d), kv_len) in enumerate(cases):
@@ -378,9 +429,15 @@ def check_decode(torch) -> float:
                 zoo[(d, dtype)] = max(zoo[(d, dtype)], err)
             if (B, Skv, H, Hk, d, kv_len) in GEN_DECODE:
                 generate[dtype] = max(generate[dtype], err)
+            shape = (B, Skv, H, Hk, d, kv_len)
+            name = ("cross" if shape == ZOO2_DECODE[0] else
+                    "granite" if shape in ZOO2_DECODE else
+                    "generate" if shape in ZOO2_GEN_DECODE else None)
+            if name:
+                zoo2[(name, dtype)] = max(zoo2[(name, dtype)], err)
             n += 1
     require(len(catalog) == 2, "the catalog's decode shape was not checked")
-    phase("3/13 kernels", kernel="decode_attention", cases=n,
+    phase("3/14 kernels", kernel="decode_attention", cases=n,
           max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
           max_abs_err_fp32=f"{worst[torch.float32]:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_fp32=f"{catalog['float32']:.3e}",
@@ -395,6 +452,13 @@ def check_decode(torch) -> float:
           f"{generate[torch.bfloat16]:.3e}",
           max_abs_err_generate_B1_B2_d120_d256_d128_fp32=
           f"{generate[torch.float32]:.3e}",
+          **{f"max_abs_err_{label}_{dt}": f"{zoo2[(name, dtype)]:.3e}"
+             for name, label in (
+                 ("cross", "seamless_cross_B2_Skv1024_d64_G1"),
+                 ("granite", "granite_B8_Skv4096_d64_G2"),
+                 ("generate", "zoo_generate_pixtral_seamless_granite"))
+             for dt, dtype in (("bf16", torch.bfloat16),
+                               ("fp32", torch.float32))},
           tol="atol:2e-5,rtol:fp32=2e-5,bf16=2e-5+2**-8",
           against="plain_in_fp32")
     return main_err
@@ -416,6 +480,7 @@ def check_flash(torch) -> float:
               (FLASH_DANUBE, torch.bfloat16), (FLASH_DANUBE3, torch.bfloat16),
               (FLASH_GEMMA, torch.bfloat16)]
     cases += [(s, torch.bfloat16) for s in GEN_FLASH]
+    cases += [(s, torch.bfloat16) for s in ZOO2_FLASH.values()]
     errs = {}
     for shape, dtype in cases:
         B, Sq, Skv, H, Hk, d, causal, window = shape
@@ -437,7 +502,7 @@ def check_flash(torch) -> float:
         del q, big, k, v, out
     torch.cuda.empty_cache()
     small = [e for (s, _), e in errs.items() if s in FLASH_SHAPES]
-    phase("3/13 kernels", kernel="flash_attention", cases=len(errs),
+    phase("3/14 kernels", kernel="flash_attention", cases=len(errs),
           max_abs_err_sweep=f"{max(small):.3e}",
           max_abs_err_mistral_S4096_bf16=f"{errs[(FLASH_MAIN, 'bfloat16')]:.3e}",
           max_abs_err_mistral_S4096_fp32=f"{errs[(FLASH_MAIN, 'float32')]:.3e}",
@@ -449,6 +514,8 @@ def check_flash(torch) -> float:
           f"{errs[(FLASH_GEMMA, 'bfloat16')]:.3e}",
           max_abs_err_generate_mistral_B2_S2048_gemma_S1024_bf16=
           f"{max(errs[(s, 'bfloat16')] for s in GEN_FLASH):.3e}",
+          **{f"max_abs_err_{name}_bf16": f"{errs[(s, 'bfloat16')]:.3e}"
+             for name, s in ZOO2_FLASH.items()},
           tol="atol:2e-5,rtol:fp32=2e-5,bf16=2e-5+2**-8",
           against="plain_in_fp32")
     return errs[(FLASH_MAIN, "bfloat16")]
@@ -501,7 +568,7 @@ def check_ssm(torch) -> float:
     sweep = {a: max(e for (s, k), e in errs.items()
                     if k == a and s != SSM_MAIN)
              for a in ("shared", "per_channel")}
-    phase("3/13 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+    phase("3/14 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
           lanes="1,2,4",
           max_abs_err_sweep=f"{sweep['shared']:.3e}",
           max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
@@ -517,7 +584,7 @@ def phase_parity(torch) -> None:
     import numpy as np
     mistral = parity(torch, "mistral-nemo-12b", [np.array([0, 3, 10, 40])],
                      steps=6, prompt=(2, 9), new=(2, 6))
-    phase("4/13 parity", config="mistral-nemo-12b/SMOKE/fp32",
+    phase("4/14 parity", config="mistral-nemo-12b/SMOKE/fp32",
           logits_max_abs_err=f"{mistral:.3e}", tol="1e-4",
           engine_tokens="equal")
     # one position for every row, then ragged per-row positions: 40 steps
@@ -526,7 +593,7 @@ def phase_parity(torch) -> None:
     danube = parity(torch, "h2o-danube-1.8b",
                     [np.zeros(4, np.int64), np.array([0, 5, 11, 30])],
                     steps=40, prompt=(10, 21), new=(8, 14))
-    phase("4/13 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
+    phase("4/14 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
           cache_rows=16, steps="40_scalar_pos+40_ragged_pos",
           logits_max_abs_err=f"{danube:.3e}", tol="1e-4",
           engine_tokens="equal")
@@ -534,12 +601,12 @@ def phase_parity(torch) -> None:
     # engine's six requests through three slots reuse slots (F5)
     xlstm = parity(torch, "xlstm-350m", [np.zeros(4, np.int64)], steps=20,
                    prompt=(2, 9), new=(2, 6))
-    phase("4/13 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
+    phase("4/14 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
           logits_max_abs_err=f"{xlstm:.3e}", tol="1e-4",
           engine_tokens="equal_under_slot_reuse")
     for arch in GENERATE_PARITY:
         err = generate_parity(torch, arch)
-        phase("4/13 parity.generate", config=f"{arch}/SMOKE/fp32",
+        phase("4/14 parity.generate", config=f"{arch}/SMOKE/fp32",
               batch=2, prompt=21, steps=12,
               prefill_logits_max_abs_err=f"{err:.3e}", tol="1e-4",
               greedy_tokens="equal")
@@ -651,7 +718,7 @@ def phase_serve(torch) -> dict:
     run_launches = da.launches
     require(run_launches == cfg.num_layers * res["decode_steps"],
             f"run: {run_launches} launches for {res['decode_steps']} steps")
-    phase("5/13 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+    phase("5/14 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
           p99_ms=res["p99_ms"], served=res["served"],
           decode_steps=res["decode_steps"], launches=run_launches,
           wall_s=f"{wall:.1f}")
@@ -686,7 +753,7 @@ def phase_serve(torch) -> dict:
                                        device="cuda"), 100)
     require(tuple(logits.shape) == (8, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    phase("5/13 serve.engine", requests=len(reqs), decode_steps=eng.steps,
+    phase("5/14 serve.engine", requests=len(reqs), decode_steps=eng.steps,
           new_tokens=new, tokens_per_s=f"{new / wall:.1f}",
           wall_s=f"{wall:.2f}", launches=eng_launches,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -736,7 +803,7 @@ def phase_share(torch) -> int:
         off_ms = (res["oversold"] * horizon / res["offline_steps"] * 1e3
                   if share else None)
         # the SLO guard's eviction ends the run early: fewer served
-        phase("6/13 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
+        phase("6/14 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=requests,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -752,10 +819,14 @@ def phase_share(torch) -> int:
     return total
 
 
-# (arch, batch, prompt tokens, decode steps): each run gives steps + 1 new
-# tokens, the first from the prefill's logits
-GENERATE = [("mistral-nemo-12b", 2, 2048, 31), ("h2o-danube-3-4b", 1, 5120, 31),
-            ("gemma-7b", 1, 1024, 15), ("xlstm-350m", 2, 512, 31)]
+# (arch, batch, prompt tokens, decode steps, layers): each run gives
+# steps + 1 new tokens, the first from the prefill's logits; layers None is
+# the config's depth.  mistral-nemo-12b runs 10 of its 40 layers at full
+# width since phase 14 came in (the script near 240 s): pixtral-12b's run
+# there covers that backbone's width at full depth
+GENERATE = [("mistral-nemo-12b", 2, 2048, 31, 10),
+            ("h2o-danube-3-4b", 1, 5120, 31, None),
+            ("gemma-7b", 1, 1024, 15, None), ("xlstm-350m", 2, 512, 31, None)]
 
 
 def phase_generate(torch) -> dict:
@@ -769,11 +840,12 @@ def phase_generate(torch) -> dict:
     from repro_torch.launch.serve import run
     from repro_torch.models import greedy_generate, init_params, make_prefill
     total = {"decode_attention": 0, "flash_attention": 0}
-    for arch, B, S0, steps in GENERATE:
+    for arch, B, S0, steps, layers in GENERATE:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        cfg = get_config(arch, smoke=False)
+        cfg = get_config(arch, smoke=False,
+                         **({"num_layers": layers} if layers else {}))
         dense = cfg.pattern == (("attn", "dense"),)
         params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
         batch = {"tokens": torch.randint(
@@ -811,8 +883,8 @@ def phase_generate(torch) -> dict:
             "vocabulary")
         for k in total:
             total[k] += n[k]
-        phase("7/13 generate", config=f"{arch}/FULL/bf16", batch=B,
-              prompt=S0, decode_steps=steps, new_tokens=B * (steps + 1),
+        phase("7/14 generate", config=f"{arch}/FULL/bf16",
+              layers=cfg.num_layers, batch=B, prompt=S0, decode_steps=steps, new_tokens=B * (steps + 1),
               prefill_ms=f"{prefill_ms:.2f}",
               decode_ms_per_step=f"{(wall * 1e3 - prefill_ms) / steps:.2f}",
               tokens_per_s=f"{B * (steps + 1) / wall:.1f}",
@@ -838,7 +910,7 @@ def phase_generate(torch) -> dict:
             require(res["train_steps_done"] == res["offline_steps"] + 2,
                     f"train steps {res['train_steps_done']} for "
                     f"{res['offline_steps']} offline steps")
-        phase("7/13 generate.serve", config="xlstm-350m/FULL/bf16",
+        phase("7/14 generate.serve", config="xlstm-350m/FULL/bf16",
               share=share, batch=4, requests=200, base_ms=res["base_ms"],
               p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
               served=res["served"], evicted=res["served"] < 200,
@@ -892,13 +964,13 @@ def phase_profile(torch) -> tuple[dict, object, object]:
         atol, rtol = CHECKSUM_TOL[name]
         require(abs(g - w) <= atol + rtol * abs(w),
                 f"{name}: checksum {g} on the card, {w} on the CPU")
-        phase("8/13 profile.exec", workload=name, device="cuda",
+        phase("8/14 profile.exec", workload=name, device="cuda",
               steps=rec.steps_executed,
               wall_ms_per_step=rec.wall_ms_per_step, checksum_card=g,
               checksum_cpu=w, tol=f"atol:{atol},rtol:{rtol}")
     require(got == want, "the card's matrix differs from the CPU-built one "
             "in a field other than the checksums")
-    phase("8/13 profile", suite="smoke", seed=0, pairs=len(card.pairs),
+    phase("8/14 profile", suite="smoke", seed=0, pairs=len(card.pairs),
           cells=sum(len(p["shares"]) for p in card.pairs), schema="clean",
           matrix="equal_to_cpu_but_checksums", launches=counts,
           wall_s=f"{wall:.2f}", cpu_matrix_s=f"{cpu_s:.2f}")
@@ -913,7 +985,7 @@ def phase_profile(torch) -> tuple[dict, object, object]:
             f"bad validation MAE {maes}")
     require(all(p[0]["w"].device.type == "cuda"
                 for p in pred.params_by_type.values()), "predictor not on card")
-    phase("8/13 profile.predictor", device="cuda",
+    phase("8/14 profile.predictor", device="cuda",
           epochs=len(hist["T4"]["val_mae"]),
           **{f"final_val_mae_{gpu}": m for gpu, m in maes.items()},
           seconds=f"{secs:.2f}")
@@ -945,7 +1017,7 @@ def phase_train(torch) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    phase("9/13 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
+    phase("9/14 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
           params=cfg.param_count(), losses=losses, step_ms=ms,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     del params, state
@@ -971,7 +1043,7 @@ def train_danube(torch) -> None:
     losses = out["losses"]
     require(out["steps_done"] == 5 and not out["interrupted"]
             and all(math.isfinite(v) for v in losses), f"train.run {out}")
-    phase("9/13 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
+    phase("9/14 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
           batch=8, seq=64, params=cfg.param_count(), losses=losses,
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -1016,7 +1088,7 @@ def offline_step_breakdown(torch) -> None:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     n = cfg.param_count()
-    phase("9/13 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
+    phase("9/14 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
           batch=4, seq=32, step_ms=[t * 1e3 for t in step_s[1:]],
           grad_ms=[(t - u) * 1e3 for t, u in zip(step_s[1:], update_s[1:])],
           adamw_ms=[u * 1e3 for u in update_s[1:]],
@@ -1060,7 +1132,7 @@ def checkpoint_roundtrip(torch) -> None:
     require(at == 2 and len(pairs) == 4 * len(tree[0]) + 1 and all(
         y.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
         for x, y in pairs), "restored checkpoint differs")
-    phase("9/13 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
+    phase("9/14 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
           leaves=len(pairs), step=at, restored_to="cuda", equal="bitwise")
 
 
@@ -1104,7 +1176,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
         da._library(), dev, q.dtype, H, Hk, d))
     call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
-    phase("10/13 timing", kernel="decode_attention",
+    phase("10/14 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
           ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
           splits=ns, split_len=split_len)
@@ -1118,18 +1190,20 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - da.decode_attention_plain(
         q, k, v, lens).float()).abs().max())
     library_ms, library_events_ms = graph_ms(torch, sdpa), time_ms(torch, sdpa)
-    phase("10/13 timing", kernel="decode_attention",
+    phase("10/14 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
           ms=ms, events_ms=events_ms, plain_ms=plain_ms,
           library_ms=library_ms, library_events_ms=library_events_ms,
           library_max_abs_err=f"{library_err:.3e}", bound_ms=bound_ms,
           bound_by=by)
-    # the head widths the generate phase added, in CUDA graphs
+    # the head widths and groups phases 7 and 14 added, in CUDA graphs
     for name, (b, skv, h, hk, dh, _) in (("danube3", ZOO_DECODE[1]),
-                                         ("gemma", ZOO_DECODE[3])):
+                                         ("gemma", ZOO_DECODE[3]),
+                                         ("seamless_cross", ZOO2_DECODE[0]),
+                                         ("granite", ZOO2_DECODE[2])):
         q2, k2, v2, lens2, sdpa2, bound2, by2 = decode_inputs(
             torch, gen, b, skv, h, hk, dh)
-        phase("10/13 timing", kernel="decode_attention", model=name,
+        phase("10/14 timing", kernel="decode_attention", model=name,
               shape=f"B{b}_Skv{skv}_H{h}_Hk{hk}_d{dh}_bf16_kvlen{skv}",
               graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
                   q2, k2, v2, lens2)),
@@ -1146,9 +1220,10 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
 
 
 def flash_inputs(torch, gen, shape: tuple):
-    """bf16 q, k, v on the card for a FLASH_* shape (causal); SDPA on the
-    same inputs (a yardstick only: GQA by `enable_gqa`, a window as a
-    boolean mask); the bound over the (query, key) pairs the masks leave.
+    """bf16 q, k, v on the card for a FLASH_* shape (causal, or non-causal
+    with no window); SDPA on the same inputs (a yardstick only: GQA by
+    `enable_gqa`, a window as a boolean mask); the bound over the
+    (query, key) pairs the masks leave.
     Returns (q, k, v, sdpa, bound_ms, bound_by, flops, nbytes)."""
     import torch.nn.functional as F
     B, Sq, Skv, H, Hk, d, causal, window = shape
@@ -1159,15 +1234,16 @@ def flash_inputs(torch, gen, shape: tuple):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if window is None:
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     else:
         i = torch.arange(Sq, device=dev)[:, None]
         j = torch.arange(Skv, device=dev)[None]
         mask = (j <= i) & (j > i - window)
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    # query row i sees keys max(0, i - window + 1)..i
-    visible = sum(min(i + 1, window or Skv) for i in range(Sq))
+    # query row i sees keys max(0, i - window + 1)..i (causal), or all
+    visible = (sum(min(i + 1, window or Skv) for i in range(Sq)) if causal
+               else Sq * Skv)
     flops = 4 * B * H * visible * d
     nbytes = (2 * B * Sq * H * d + 2 * B * Skv * Hk * d) * q.element_size()
     bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
@@ -1186,7 +1262,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             ptxas[f"wgmma_forward_{dp_bk}"] = (
                 f"regs:{r.get('registers')},spill_bytes:"
                 f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/13 timing", kernel="flash_attention", design="wgmma",
+    phase("10/14 timing", kernel="flash_attention", design="wgmma",
           bf16_tile=fa.tile_plan(d), **ptxas)
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v, sdpa, bound_ms, by, flops, nbytes = flash_inputs(torch, gen,
@@ -1199,23 +1275,25 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - fa.flash_attention_cuda(
         q, k, v, causal=causal).float()).abs().max())
     library_ms = time_ms(torch, sdpa)
-    phase("10/13 timing", kernel="flash_attention",
+    phase("10/14 timing", kernel="flash_attention",
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal", ms=ms,
           plain_ms=plain_ms, library_ms=library_ms,
           library_vs_kernel_max_abs_diff=f"{library_err:.3e}",
           bound_ms=bound_ms, bound_by=by, flops=flops, bytes=nbytes)
     del q, k, v
-    # the generate phase's new prefill shapes, in CUDA graphs
-    for name, shape in (("danube3", FLASH_DANUBE3), ("gemma", FLASH_GEMMA)):
+    # the generate phases' new prefill shapes, in CUDA graphs
+    for name, shape in (("danube3", FLASH_DANUBE3), ("gemma", FLASH_GEMMA),
+                        *ZOO2_FLASH.items()):
         q2, k2, v2, sdpa2, bound2, by2, flops2, nbytes2 = flash_inputs(
             torch, gen, shape)
-        B2, Sq2, _, H2, Hk2, d2, _, window2 = shape
-        phase("10/13 timing", kernel="flash_attention", model=name,
-              shape=f"B{B2}_S{Sq2}_H{H2}_Hk{Hk2}_d{d2}_bf16_causal"
+        B2, Sq2, Skv2, H2, Hk2, d2, causal2, window2 = shape
+        phase("10/14 timing", kernel="flash_attention", model=name,
+              shape=f"B{B2}_Sq{Sq2}_Skv{Skv2}_H{H2}_Hk{Hk2}_d{d2}_bf16_"
+              + ("causal" if causal2 else "full")
               + (f"_w{window2}" if window2 else ""),
               bf16_tile=fa.tile_plan(d2), graph_ms=graph_ms(
                   torch, lambda: fa.flash_attention_cuda(
-                      q2, k2, v2, causal=True, window=window2)),
+                      q2, k2, v2, causal=causal2, window=window2)),
               library_graph_ms=graph_ms(torch, sdpa2), bound_ms=bound2,
               bound_by=by2, flops=flops2, bytes=nbytes2)
         del q2, k2, v2
@@ -1248,7 +1326,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         ptxas[f"N{n}_L{lanes}"] = (
             f"regs:{r.get('registers')},spill_bytes:"
             f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/13 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
+    phase("10/14 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
     shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
@@ -1259,7 +1337,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
         events_ms = time_ms(torch, call)
         clock = sm_clock()
-        phase("10/13 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+        phase("10/14 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
               ms=events_ms, sm_clock_mhz=clock,
               graph_ms=graph_ms(torch, call))
     plan = ss.lane_plan(B, di, N,
@@ -1278,7 +1356,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("10/13 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+    phase("10/14 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
           channels_per_block=plan.channels, blocks=plan.blocks,
           busiest_sm_channels=plan.busiest,
           mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
@@ -1430,7 +1508,7 @@ def fleet_line(name: str, engine: str, run: dict, **extra) -> None:
                       predictor_ms_max=f"{max(ms):.3f}")
     fields["phases_s"] = json.dumps({k: round(v, 3) for k, v in
                                      sorted(run["phases_s"].items())})
-    phase(f"11/13 fleet.{name}", engine=engine, **fields, **extra)
+    phase(f"11/14 fleet.{name}", engine=engine, **fields, **extra)
 
 
 def engine_profile(torch, sim, ticks: int = 30) -> None:
@@ -1464,7 +1542,7 @@ def engine_profile(torch, sim, ticks: int = 30) -> None:
                       idle_share=f"{1.0 - busy / wall_ms:.3f}")
     else:
         fields.update(device_busy_ms="not measured (no device events)")
-    phase("11/13 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
+    phase("11/14 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
           **fields)
 
 
@@ -1513,7 +1591,7 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
               for t, f, _ in calls)
     require(err <= PREDICTOR_TOL,
             f"card predictions off the CPU's by {err} > {PREDICTOR_TOL}")
-    phase("11/13 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
+    phase("11/14 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
           gpu_types=sorted({str(t) for t, _, _ in calls}), max_abs_err=err,
           tol=PREDICTOR_TOL, matmul_precision=repr(
               torch.get_float32_matmul_precision()),
@@ -1670,7 +1748,7 @@ def phase_control(torch) -> dict:
     require(all(p[0]["w"].device.type == "cuda"
                 for p in predictor.params_by_type.values()),
             "the predictor is not on the card")
-    phase("12/13 control.predictor", device="cuda", policy=sc.policy,
+    phase("12/14 control.predictor", device="cuda", policy=sc.policy,
           samples=sc.predictor_samples, epochs=sc.predictor_epochs,
           seconds=f"{time.perf_counter() - t:.2f}")
     runs = {engine: control_run(torch, sc, predictor, engine)
@@ -1687,7 +1765,7 @@ def phase_control(torch) -> dict:
             and math.isfinite(f["propagation_rate"]),
             f"implausible campaign report {s}")
     for engine, run in runs.items():
-        phase("12/13 control.diurnal-mixed", engine=engine,
+        phase("12/14 control.diurnal-mixed", engine=engine,
               device=("cuda" if engine == "torch" else "host"),
               n_devices=sc.n_devices, hours=sc.hours, tick_s=sc.tick_s,
               wall_s=f"{run['head_s'] + run['tail_s']:.2f}",
@@ -1695,7 +1773,7 @@ def phase_control(torch) -> dict:
               split_s=json.dumps({k: round(v, 3) for k, v in
                                   sorted(run["split_s"].items())}),
               **run.get("profiled", {}))
-    phase("12/13 control.report", scenario=sc.name, engines="numpy==torch",
+    phase("12/14 control.report", scenario=sc.name, engines="numpy==torch",
           bytes=len(canon["numpy"]), schema="clean",
           gpu_util=s["gpu_util"], sm_activity=s["sm_activity"],
           oversold_gpu=s["oversold_gpu"], avg_slowdown=s["avg_slowdown"],
@@ -1716,7 +1794,7 @@ def phase_control(torch) -> dict:
             f"(phase 8's matrix is not reused): {counts}")
     require(not check_schema(rep) and rep["sim"]["n_finished"] > 0,
             "calibrated: bad report")
-    phase("12/13 control.calibrated", n_devices=rep["scenario"]["n_devices"],
+    phase("12/14 control.calibrated", n_devices=rep["scenario"]["n_devices"],
           matrix="built on the card", launches=counts,
           gpu_util=rep["sim"]["gpu_util"],
           avg_slowdown=rep["sim"]["avg_slowdown"],
@@ -1728,10 +1806,10 @@ def phase_control(torch) -> dict:
             "serving-slo: bad report")
     for svc, row in sorted(serving["services"].items()) + [
             ("total", serving["total"])]:
-        phase("12/13 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
+        phase("12/14 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
               p99_ms=row["p99_ms"], slo_attainment=row["slo_attainment"],
               shed=row["shed"], arrived=row["arrived"])
-    phase("12/13 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
+    phase("12/14 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
           hours=rep["scenario"]["hours"], wall_s=f"{wall:.2f}")
 
     rep, wall = run_cli(torch, ["sim", "--scenario", "chaos-storm"])
@@ -1739,7 +1817,7 @@ def phase_control(torch) -> dict:
     require(not check_schema(rep) and res["injected"] > 0
             and res["unmatched"] == 0,
             f"chaos-storm: unpaired faults {res['unmatched_by_kind']}")
-    phase("12/13 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
+    phase("12/14 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
           injected=res["injected"], recovered=res["recovered"],
           unmatched=res["unmatched"],
           injected_by_kind=json.dumps(res["injected_by_kind"]),
@@ -1871,11 +1949,11 @@ def phase_durable(torch, control: dict) -> None:
         for line in err.splitlines():
             if line.startswith("[phases]") and "phase" not in line[9:15]:
                 name, *vals = line[9:].split()
-                phase("13/13 durable.phases", phase=name, wall_s=vals[0],
+                phase("13/14 durable.phases", phase=name, wall_s=vals[0],
                       **({"share": vals[1], "calls": vals[2]}
                          if len(vals) == 3 else {}))
         obs = rep["obs"]
-        phase("13/13 durable.run", scenario=D["scenario"],
+        phase("13/14 durable.run", scenario=D["scenario"],
               n_devices=D["n_devices"], hours=rep["scenario"]["hours"],
               engine="torch", device="cuda", ticks=n,
               wall_s=f"{wall:.2f}", ms_per_tick=f"{wall * 1e3 / n:.3f}",
@@ -1886,7 +1964,7 @@ def phase_durable(torch, control: dict) -> None:
               parts_s=json.dumps({k: round(v, 3)
                                   for k, v in sorted(parts.s.items())}),
               schema="clean", prom_lint="clean", manifest="OK")
-        phase("13/13 durable.wal", backend="jsonl", events=events,
+        phase("13/14 durable.wal", backend="jsonl", events=events,
               events_per_s=f"{events / wall:.1f}",
               append_us=f"{parts.s['wal_append'] * 1e6 / events:.2f}",
               metrics_rows=obs["metrics"]["rows"],
@@ -1894,7 +1972,7 @@ def phase_durable(torch, control: dict) -> None:
               trace_rows=obs["trace"]["rows"],
               incidents=rep["incidents"]["total"])
         n_snap = n // every - (1 if n % every == 0 else 0)
-        phase("13/13 durable.snapshots", taken=n_snap, kept=len(snaps),
+        phase("13/14 durable.snapshots", taken=n_snap, kept=len(snaps),
               every_ticks=every,
               bytes_each=json.dumps(dict(zip(snaps, snap_bytes))),
               ms_each=f"{parts.s['snapshot'] * 1e3 / n_snap:.1f}")
@@ -1962,7 +2040,7 @@ def phase_durable(torch, control: dict) -> None:
                                                      "manifest.json")])
         require(rc == 0, f"resumed manifest: {verr}")
         live_s = tick_at[n] - tick_at[origin]
-        phase("13/13 durable.resume", killed_at_tick=kill,
+        phase("13/14 durable.resume", killed_at_tick=kill,
               resumed_from_tick=origin, ticks_replayed=n - origin,
               killed_run_s=f"{killed_s:.2f}",
               resume_process_s=f"{resume_s:.2f}",
@@ -1984,8 +2062,8 @@ def phase_durable(torch, control: dict) -> None:
                 and doc["devices"]["total"] == D["n_devices"],
                 f"inspect: {doc['tick']}, {doc['devices']}")
         for line in err.strip().splitlines():
-            phase("13/13 durable.inspect", line=repr(line))
-        phase("13/13 durable.inspect", tick=D["inspect_tick"],
+            phase("13/14 durable.inspect", line=repr(line))
+        phase("13/14 durable.inspect", tick=D["inspect_tick"],
               wall_s=f"{wall:.2f}")
 
         # 4. serve durable on both engines: every artifact byte-equal
@@ -2004,7 +2082,7 @@ def phase_durable(torch, control: dict) -> None:
                 "serving-slo's artifacts differ between the engines")
         with open(os.path.join(work, "serve-torch", "report.json")) as f:
             rep = json.load(f)
-        phase("13/13 durable.serve", scenario="serving-slo",
+        phase("13/14 durable.serve", scenario="serving-slo",
               n_devices=rep["scenario"]["n_devices"],
               hours=rep["scenario"]["hours"], engines="numpy==torch",
               files=",".join(sorted(out["torch"][0])),
@@ -2027,16 +2105,357 @@ def phase_durable(torch, control: dict) -> None:
                 and names.get("recovery-byte-identity"),
                 f"chaos: exit code {rc}, invariants {names}")
         for inv in verdict["invariants"]:
-            phase("13/13 durable.chaos", invariant=inv["name"],
+            phase("13/14 durable.chaos", invariant=inv["name"],
                   result="PASS" if inv["ok"] else "FAIL",
                   detail=repr(inv["detail"]))
         res = verdict["resilience"]
-        phase("13/13 durable.chaos", scenario="chaos-storm", engine="torch",
+        phase("13/14 durable.chaos", scenario="chaos-storm", engine="torch",
               device="cuda", injected=res["injected"],
               recovered=res["recovered"],
               store_faults=res["ladder"]["store_faults"],
               store_retries=res["ladder"]["store_retries"],
               wall_s=f"{wall:.2f}")
+
+
+# ------------------------------------------------------------------ phase 14
+# phase 14: the rest of the GQA zoo.  (arch, batch, prompt tokens, decode
+# steps) of its generate runs at full width; pixtral-12b's prompt also holds
+# its 1024 patch embeddings before the tokens, seamless-m4t-medium's batch
+# ZOO2_FRAMES source frame embeddings
+ZOO2_GENERATE = [("pixtral-12b", 1, 1024, 31),
+                 ("seamless-m4t-medium", 2, 512, 31),
+                 ("granite-moe-1b-a400m", 2, 2048, 31)]
+ZOO2_FRAMES = 1024
+ZOO2_TRAIN_SEQ = 512          # tokens a row of the train batches (B2)
+
+
+def zoo_batch(torch, cfg, B: int, S: int, gen, frames: int) -> dict:
+    """Tokens, with the stub frontends' embeddings a config takes: the
+    patch frontend's num_patches embeddings, an encoder's `frames` source
+    frames; drawn from `gen` on its device."""
+    dev = gen.device
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                                     generator=gen)}
+    if cfg.frontend == "patch":
+        batch["patch_embeds"] = torch.randn(B, cfg.num_patches, cfg.d_model,
+                                            generator=gen, device=dev)
+    if cfg.enc_layers:
+        batch["src_embeds"] = torch.randn(B, frames, cfg.d_model,
+                                          generator=gen, device=dev)
+    return batch
+
+
+def zoo_want(cfg, steps: int) -> dict:
+    """A generate run's exact launches: flash once a layer in the prefill
+    (an encoder's layers too, and once more for a decoder layer's cross
+    attention), decode once a layer a step (twice with cross attention)."""
+    cross = 2 if cfg.enc_layers else 1
+    return {"flash_attention": cross * cfg.num_layers + cfg.enc_layers,
+            "decode_attention": cross * cfg.num_layers * steps}
+
+
+def zoo_parity(torch, arch: str) -> float:
+    """`arch` SMOKE in fp32, one set of weights on the card and on the CPU,
+    on one batch (its patches or source frames too): the prefill's
+    last-token logits, 20 decode steps' logits after it (limit 1e-4 each)
+    and `greedy_generate`'s tokens over 12 steps, which must be equal.
+    Returns the logits' max abs error."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (greedy_generate, init_cache,
+                                    init_params, make_decode_step,
+                                    make_prefill)
+    from repro_torch.models.steps import _copy_prefix_cache
+    cfg = get_config(arch, smoke=True, dtype=torch.float32)
+    cpu = init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    B, S, steps, frames = 2, 21, 20, 12
+    batch = zoo_batch(torch, cfg, B, S, torch.Generator().manual_seed(2),
+                      frames)
+    card = {k: v.cuda() for k, v in batch.items()}
+    S0 = S + (cfg.num_patches if cfg.frontend == "patch" else 0)
+    src = frames if cfg.enc_layers else 0
+    want, pre = make_prefill(cfg)(cpu, batch)
+    got, pre_card = make_prefill(cfg)(gpu, card)
+    err = compare(torch, got.cpu(), want, 1e-4, 1e-4)
+    caches = {"cpu": _copy_prefix_cache(pre, init_cache(
+                  cfg, B, S0 + steps, src_len=src, device="cpu")),
+              "cuda": _copy_prefix_cache(pre_card, init_cache(
+                  cfg, B, S0 + steps, src_len=src, device="cuda"))}
+    decode = make_decode_step(cfg)
+    rng = np.random.default_rng(3)
+    for i in range(steps):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)))
+        want, _ = decode(cpu, caches["cpu"], toks, S0 + i)
+        got, _ = decode(gpu, caches["cuda"], toks.cuda(), S0 + i)
+        err = max(err, compare(torch, got.cpu(), want, 1e-4, 1e-4))
+    host = greedy_generate(cfg, cpu, batch, 12)
+    on_card = greedy_generate(cfg, gpu, card, 12).cpu()
+    require(torch.equal(on_card, host),
+            f"{arch}: greedy tokens differ: card {on_card.tolist()} vs CPU "
+            f"{host.tolist()}")
+    return err
+
+
+def zoo_generate(torch, arch: str, B: int, S: int, steps: int) -> dict:
+    """`greedy_generate` at full width in bf16 with its prefill timed alone
+    first; the launches of the generate run, required exactly.  Returns
+    them."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.models import greedy_generate, init_params, make_prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch, smoke=False)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = zoo_batch(torch, cfg, B, S,
+                      torch.Generator(device="cuda").manual_seed(1),
+                      ZOO2_FRAMES)
+    prefill = make_prefill(cfg)
+    prefill(params, batch)                           # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    require(tuple(logits.shape) == (B, cfg.padded_vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{arch}: bad prefill logits")
+    rows = {k: tuple(v.shape) for k, v in cache[0].items()}
+    del logits, cache
+    da.launches = fa.launches = ss.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = greedy_generate(cfg, params, batch, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n = {"flash_attention": fa.launches, "decode_attention": da.launches}
+    want = zoo_want(cfg, steps)
+    require(n == want and ss.launches == 0,
+            f"{arch}: launches {n}, ssm_scan {ss.launches}; want {want}")
+    require(tuple(out.shape) == (B, steps + 1) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        f"{arch}: generated ids of the wrong shape or outside the "
+        "vocabulary")
+    phase("14/14 zoo.generate", config=f"{arch}/FULL/bf16", batch=B,
+          prompt_tokens=S,
+          patches=cfg.num_patches if cfg.frontend == "patch" else 0,
+          source_frames=ZOO2_FRAMES if cfg.enc_layers else 0,
+          decode_steps=steps, new_tokens=B * (steps + 1),
+          prefill_ms=f"{prefill_ms:.2f}",
+          decode_ms_per_step=f"{(wall * 1e3 - prefill_ms) / steps:.2f}",
+          tokens_per_s=f"{B * (steps + 1) / wall:.1f}",
+          wall_s=f"{wall:.2f}", launches=n, prefill_cache=rows,
+          params=cfg.param_count(), active_params=cfg.active_param_count(),
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    del params, batch, out
+    return n
+
+
+def zoo_serve(torch) -> int:
+    """granite-moe-1b-a400m FULL: `serve.run` alone and with `share=True`
+    (AdamW steps of a second copy, the loss with the MoE aux), then the
+    serving engine with ragged requests.  Returns the decode kernel's
+    launches of the three."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import run
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import (EngineConfig, ServeRequest,
+                                            ServingEngine)
+    arch = "granite-moe-1b-a400m"
+    cfg = get_config(arch, smoke=False)
+    total = 0
+    for share in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        da.launches = fa.launches = 0
+        t = time.perf_counter()
+        res = run(arch, smoke=False, batch=8, kv_cap=4096,
+                  requests=SERVE_REQUESTS, share=share, device="cuda")
+        wall = time.perf_counter() - t
+        n = da.launches
+        require(n == cfg.num_layers * res["decode_steps"] and fa.launches == 0,
+                f"share={share}: {n} decode launches for "
+                f"{res['decode_steps']} steps, flash {fa.launches}")
+        require(res["served"] >= 1, f"share={share}: nothing served")
+        if share:
+            require(res["offline_steps"] >= 1, "no offline step ran")
+            require(res["train_steps_done"] == res["offline_steps"] + 2,
+                    f"train steps {res['train_steps_done']} for "
+                    f"{res['offline_steps']} offline steps")
+        total += n
+        phase("14/14 zoo.serve", config=f"{arch}/FULL/bf16", share=share,
+              batch=8, kv_cap=4096, requests=SERVE_REQUESTS,
+              base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+              p99_ms=res["p99_ms"], served=res["served"],
+              evicted=res["served"] < SERVE_REQUESTS,
+              offline_steps=res["offline_steps"],
+              offline_duty=res["offline_duty"], oversold=res["oversold"],
+              train_steps_done=res["train_steps_done"],
+              decode_steps=res["decode_steps"], launches=n,
+              peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+              wall_s=f"{wall:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    eng = ServingEngine(cfg, params, EngineConfig(num_slots=8,
+                                                  kv_capacity=4096))
+    rng = np.random.default_rng(0)
+    reqs = [ServeRequest(i, rng.integers(0, cfg.vocab_size,
+                                         int(rng.integers(8, 65))),
+                         max_new_tokens=int(rng.integers(4, 17)))
+            for i in range(12)]
+    for req in reqs:
+        eng.submit(req)
+    da.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n = da.launches
+    require(n == cfg.num_layers * eng.steps,
+            f"engine: {n} launches for {eng.steps} steps")
+    new = sum(len(r.output) for r in reqs)
+    require(all(len(r.output) == r.max_new_tokens for r in reqs) and all(
+        0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
+        "engine output has the wrong length or ids out of the vocabulary")
+    phase("14/14 zoo.engine", config=f"{arch}/FULL/bf16", slots=8,
+          requests=len(reqs), decode_steps=eng.steps, new_tokens=new,
+          tokens_per_s=f"{new / wall:.1f}", wall_s=f"{wall:.2f}",
+          launches=n)
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total + n
+
+
+def zoo_train(torch) -> None:
+    """granite-moe-1b-a400m FULL through the train launcher (AdamW, B2 x
+    512) and one train step's metrics (loss, ce, moe_aux); three AdamW
+    steps of seamless-m4t-medium FULL on batches with source frames; the
+    eval step of pixtral-12b FULL (its AdamW state does not fit one card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, make_eval_step, make_train_step
+    from repro_torch.optim import AdamW, AdamWConfig
+    B, S = 2, ZOO2_TRAIN_SEQ
+    arch = "granite-moe-1b-a400m"
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = train.run(arch, smoke=False, steps=3, batch=B, seq=S, log_every=1,
+                    device="cuda")
+    wall = time.perf_counter() - t
+    require(out["steps_done"] == 3 and all(
+        math.isfinite(v) for v in out["losses"]), f"train.run {out}")
+    phase("14/14 zoo.train", config=f"{arch}/FULL/bf16", via="launch.train",
+          optimizer="AdamW", batch=B, seq=S, losses=out["losses"],
+          wall_s=f"{wall:.2f}",
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, steps in ((arch, 1), ("seamless-m4t-medium", 3)):
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch, smoke=False)
+        params = init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg)
+        opt = AdamW(AdamWConfig(lr=1e-4, total_steps=100))
+        state = opt.init(params.parameters())
+        step = make_train_step(cfg, opt)
+        pipe = TokenPipeline(DataConfig(cfg.vocab_size, S, B))
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        metrics, ms = [], []
+        for i in range(steps):
+            batch = pipe.batch_at(i)
+            if cfg.enc_layers:
+                batch["src_embeds"] = torch.randn(
+                    B, ZOO2_FRAMES, cfg.d_model, generator=gen,
+                    device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            metrics.append({k: float(m[k]) for k in ("loss", "ce",
+                                                     "moe_aux")})
+        require(all(math.isfinite(v) for m in metrics for v in m.values()),
+                f"{arch}: train metrics {metrics}")
+        if cfg.num_experts:
+            require(all(m["moe_aux"] > 0 for m in metrics),
+                    f"{arch}: no MoE aux loss {metrics}")
+        phase("14/14 zoo.train", config=f"{arch}/FULL/bf16",
+              via="make_train_step", optimizer="AdamW", batch=B, seq=S,
+              source_frames=ZOO2_FRAMES if cfg.enc_layers else 0,
+              metrics=metrics, step_ms=ms,
+              peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    arch = "pixtral-12b"
+    cfg = get_config(arch, smoke=False)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device="cuda").manual_seed(1), cfg)
+    batch = zoo_batch(torch, cfg, 1, 1024,
+                      torch.Generator(device="cuda").manual_seed(3), 0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = make_eval_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    require(all(math.isfinite(float(v)) for v in got.values()),
+            f"{arch}: eval {got}")
+    n = cfg.param_count()
+    # bf16 weights and gradients, fp32 m and v (the port's AdamW)
+    phase("14/14 zoo.train", config=f"{arch}/FULL/bf16", via="make_eval_step",
+          batch=1, patches=cfg.num_patches, seq=1024,
+          loss=float(got["loss"]), ce=float(got["ce"]), step_ms=ms,
+          adamw_state_gb=f"{12 * n / 1e9:.1f}",
+          train_step="not_run:adamw_state_past_80GB",
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(torch) -> dict:
+    """pixtral-12b, seamless-m4t-medium and granite-moe-1b-a400m: parity of
+    the card with the CPU at SMOKE, then generation, serving and training at
+    full width.  Returns the kernels' launches of the generate runs and of
+    granite's serving."""
+    import numpy as np
+    for arch, _, _, _ in ZOO2_GENERATE:
+        err = zoo_parity(torch, arch)
+        phase("14/14 zoo.parity", config=f"{arch}/SMOKE/fp32", batch=2,
+              prompt=21, decode_steps=20, greedy_steps=12,
+              logits_max_abs_err=f"{err:.3e}", tol="1e-4",
+              greedy_tokens="equal")
+    # the engine under ragged slots, and decode at ragged positions
+    err = parity(torch, "granite-moe-1b-a400m", [np.array([0, 3, 10, 40])],
+                 steps=6, prompt=(2, 9), new=(2, 6))
+    phase("14/14 zoo.parity", config="granite-moe-1b-a400m/SMOKE/fp32",
+          decode="ragged_pos", logits_max_abs_err=f"{err:.3e}", tol="1e-4",
+          engine_tokens="equal")
+    total = {"decode_attention": 0, "flash_attention": 0}
+    for arch, B, S, steps in ZOO2_GENERATE:
+        for k, n in zoo_generate(torch, arch, B, S, steps).items():
+            total[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    total["decode_attention"] += zoo_serve(torch)
+    zoo_train(torch)
+    return total
 
 
 def main() -> int:
@@ -2081,6 +2500,9 @@ def main() -> int:
     for kernel, n in control["launches"].items():
         next(k for k in kernels if k["name"] == kernel)["launches"] += n
     timed("durable", phase_durable, torch, control)
+    zoo = timed("zoo", phase_zoo, torch)
+    for kernel, n in zoo.items():
+        next(k for k in kernels if k["name"] == kernel)["launches"] += n
     phase("seconds", **seconds, total=f"{sum(seconds.values()):.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,9 @@ PORTED = {
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "xlstm-350m": "xlstm_350m",
+    "pixtral-12b": "pixtral_12b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
 

@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.profile --arch mistral-nemo-12b --no-smoke
 
 Builds the model (random weights from a seed) and a cache of the serving
-slice's shape (batch 8, capacity 4096), and decodes every slot at position
+slice's shape (batch 8, capacity 4096; an encoder-decoder model's cross
+cache of as many source rows), and decodes every slot at position
 `--fill` - 1, so that each attention call reads `--fill` cache rows a
 sequence.  It times 10 decode steps three ways: under `torch.profiler`
 (device time of each kernel), the host clock around each of those steps
@@ -38,7 +39,10 @@ def profile_decode(arch: str, *, smoke: bool, fill: int, batch: int = 8,
     dev = resolve_device(None)
     cfg = get_config(arch, smoke=smoke)
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
-    cache = init_cache(cfg, batch, kv_cap, device=dev)
+    # an encoder-decoder model decodes against a cross cache of kv_cap
+    # source rows, as `launch.serve` sizes it
+    cache = init_cache(cfg, batch, kv_cap,
+                       src_len=kv_cap if cfg.enc_layers else 0, device=dev)
     decode = make_decode_step(cfg)
     toks = torch.zeros((batch, 1), dtype=torch.long, device=dev)
     for _ in range(3):                                   # warm up

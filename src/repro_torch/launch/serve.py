@@ -8,6 +8,10 @@ a second copy of the same architecture (`--share`).  Port of
 
 The default architecture is `repro`'s, xlstm-350m (the mLSTM pattern, whose
 decode state is updated in place); every ported architecture can be served.
+An encoder-decoder model (seamless-m4t-medium) decodes against a cross
+cache of kv_cap source rows, as `repro`'s does; its `--share` raises, as
+`repro`'s does, because the train step's token batches carry no source
+embeddings (ROADMAP.md F6).
 
 `--smoke/--no-smoke` chooses the SMOKE or the FULL config; `repro`'s parser
 declared `--smoke` as `store_true` with default True, so FULL could not be
@@ -46,7 +50,8 @@ def run(arch: str, *, smoke: bool = True, requests: int = 200,
     cfg = get_config(arch, smoke=smoke)
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
     decode = make_decode_step(cfg)
-    cache = init_cache(cfg, batch, kv_cap, device=dev)
+    cache = init_cache(cfg, batch, kv_cap,
+                       src_len=kv_cap if cfg.enc_layers else 0, device=dev)
     toks = torch.zeros((batch, 1), dtype=torch.long, device=dev)
     steps = [0]
 

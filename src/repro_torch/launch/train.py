@@ -10,7 +10,9 @@ latest, graceful exit on SIGTERM/SIGINT (checkpoint, then stop: the paper's
 `--smoke/--no-smoke` chooses the SMOKE or the FULL config.  On one card
 there is no mesh: `repro`'s `mesh_shape` and its sharding rules for
 parameters, optimizer state and batches wait for the port's sharding work
-(ROADMAP.md).
+(ROADMAP.md).  The token pipeline's batches carry tokens only, so an
+encoder-decoder model (seamless-m4t-medium) raises at its first step, as
+`repro`'s launcher does (ROADMAP.md F6).
 """
 from __future__ import annotations
 

@@ -7,12 +7,16 @@ The input is the JAX tree with every leaf turned into a numpy array
   params["lm_head"]                   -> model.lm_head
   params["final_norm"]["scale"]       -> model.final_norm.scale
   params["blocks"][0][a][b][r]        -> model.blocks[r].a.b   (r < repeats)
+  params["enc_blocks"][a][b][r]       -> model.enc_blocks[r].a.b (r < enc_layers)
+  params["enc_final_norm"]["scale"]   -> model.enc_final_norm.scale
 
 `blocks[0]` is stacked over the leading `repeats` dimension (one pattern
-position); it is unstacked into per-layer tensors.  Weights keep JAX's
-(in, out) layout, so the port computes `x @ w` as `repro` does.  Both ported
-patterns carry across: the dense block (`norm1`, `attn`, `norm2`, `ffn`) and
-the mLSTM block (`norm1`, `mixer`).
+position) and `enc_blocks` over `enc_layers`; each is unstacked into
+per-layer tensors.  Weights keep JAX's (in, out) layout, so the port
+computes `x @ w` as `repro` does.  Every ported block carries across: the
+attention block (`norm1`, `attn`, `norm_cross` and `cross` with
+cross-attention, `norm2`, and `ffn`, dense or the MoE's `router`, `w_gate`,
+`w_up`, `w_down` and `shared`) and the mLSTM block (`norm1`, `mixer`).
 
 `mlp_from_jax` carries the speed predictor's MLP, a list of {"w", "b"}.
 """
@@ -43,15 +47,21 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
         raise ValueError("one stacked block tree per pattern position expected")
     flat = {"embed": tree["embed"], "lm_head": tree["lm_head"],
             "final_norm.scale": tree["final_norm"]["scale"]}
-    for name, stacked in _flatten(tree["blocks"][0]):
-        if stacked.shape[0] != cfg.repeats:
-            raise ValueError(f"{name}: leading dim {stacked.shape[0]} != "
-                             f"repeats {cfg.repeats}")
-        for r in range(cfg.repeats):
-            flat[f"blocks.{r}.{name}"] = stacked[r]
+    stacks = [("blocks", tree["blocks"][0], cfg.repeats)]
+    if cfg.enc_layers:
+        stacks.append(("enc_blocks", tree["enc_blocks"], cfg.enc_layers))
+        flat["enc_final_norm.scale"] = tree["enc_final_norm"]["scale"]
+    for prefix, blocks, n in stacks:
+        for name, stacked in _flatten(blocks):
+            if stacked.shape[0] != n:
+                raise ValueError(f"{prefix}.{name}: leading dim "
+                                 f"{stacked.shape[0]} != {n}")
+            for r in range(n):
+                flat[f"{prefix}.{r}.{name}"] = stacked[r]
     model = Transformer(cfg, device)
     # via fp32: numpy has no bf16, and the cast to each parameter's type
-    # (cfg.dtype, or fp32 for the mLSTM gates) is then exact
+    # (cfg.dtype, or fp32 for the mLSTM gates and the MoE router) is then
+    # exact
     types = {k: p.dtype for k, p in model.state_dict().items()}
     state = {k: torch.from_numpy(np.array(v, np.float32)).to(types.get(k))
              for k, v in flat.items()}

@@ -1,7 +1,7 @@
-"""Core model layers for the dense GQA decoder: RMSNorm, RoPE, GQA
-projections, the train forward's attention, the GLU FFN with a SiLU or GELU
-gate (prefill and decode attention are `kernels.ops.flash_attention` and
-`kernels.ops.decode_attention`).
+"""Core model layers for the GQA models: RMSNorm, RoPE, GQA projections,
+cross-attention's projections, the train forward's attention, the GLU FFN
+with a SiLU, GELU or ReLU gate (prefill and decode attention are
+`kernels.ops.flash_attention` and `kernels.ops.decode_attention`).
 
 Parameters live in small `nn.Module`s whose names mirror `repro`'s parameter
 tree; the layer functions take the module and the activations.  Weights keep
@@ -43,6 +43,12 @@ class GQA(nn.Module):
         self.w_k = param((d, Hk * dh), cfg.dtype, device)
         self.w_v = param((d, Hk * dh), cfg.dtype, device)
         self.w_o = param((H * dh, d), cfg.dtype, device)
+
+
+class CrossAttention(GQA):
+    """An encoder-decoder block's cross-attention (`repro`'s `cross`, laid
+    out as GQA's): queries from the decoder, keys and values from the
+    encoder's output."""
 
 
 class FFN(nn.Module):
@@ -90,6 +96,22 @@ def gqa_project_qkv(attn: GQA, x: torch.Tensor, cfg, rope: tuple):
     k = (x @ attn.w_k).reshape(B, S, Hk, dh)
     v = (x @ attn.w_v).reshape(B, S, Hk, dh)
     return apply_rope(q, rope), apply_rope(k, rope), v
+
+
+def cross_project_q(cross: CrossAttention, x: torch.Tensor, cfg):
+    """Cross-attention queries (B, S, H, dh), with no rotary embedding, as
+    `repro`'s `_apply_cross_attn` applies none."""
+    B, S, _ = x.shape
+    return (x @ cross.w_q).reshape(B, S, cfg.num_heads, cfg.head_dim)
+
+
+def cross_project_kv(cross: CrossAttention, enc_out: torch.Tensor, cfg):
+    """Cross-attention keys and values (B, S_src, Hk, dh) of the encoder's
+    output, with no rotary embedding."""
+    B, S, _ = enc_out.shape
+    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    return ((enc_out @ cross.w_k).reshape(shape),
+            (enc_out @ cross.w_v).reshape(shape))
 
 
 def repeat_kv(k: torch.Tensor, G: int) -> torch.Tensor:
@@ -143,7 +165,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
-ACTS = {"silu": F.silu, "gelu": gelu}
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu`'s own formula, x * (1 / (1 + exp(-x))), op by op in x's
+    type.  `F.silu` rounds once; in bf16 that moves values by an ulp, which
+    the mLSTM's normalisation, or an expert's down projection, then
+    amplifies past the bf16 limit."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
 
 
 def ffn(params: FFN, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

@@ -1,21 +1,28 @@
 """Model core for the port: config, init, caches and the forward pass.
 
-Two patterns are ported, each in every mode `repro` runs it in:
+Five patterns are ported, each in every mode `repro` runs it in:
   * dense GQA `(("attn", "dense"),)`, full or sliding-window attention, with
-    a SiLU or GELU FFN;
+    a SiLU, GELU or ReLU FFN; with a patch frontend (pixtral-12b) the
+    caller's patch embeddings go before the tokens;
+  * GQA with the MoE FFN `(("attn", "moe"),)` (`moe.py`);
+  * the encoder-decoder `(("attn_cross", "dense"),)`: a bidirectional
+    encoder of dense blocks over the caller's source frame embeddings, and
+    decoder blocks with cross-attention over its output;
   * mLSTM `(("mlstm", "none"),)`.
 Modes: `train` (full-sequence logits, the offline train step), `prefill`
 (the prompt's pass: last-token logits and the decode cache) and `decode`
 (one token against the cache, the online-serving hot path).  Prefill
-attention is `kernels.ops.flash_attention` and decode attention
-`kernels.ops.decode_attention`; the train forward keeps `repro`'s
-materialised attention under autograd, and the mLSTM runs no kernel.
+attention (self, cross and the encoder's) is `kernels.ops.flash_attention`
+and decode attention (self and cross) `kernels.ops.decode_attention`; the
+train forward keeps `repro`'s materialised attention under autograd, and
+the mLSTM and the MoE run no kernel.
 
 Blocks are an `nn.ModuleList` of per-layer modules, run by a Python loop; the
 cache keeps `repro`'s layout, a tuple over pattern positions of {"k", "v"}
-(dense) or {"C", "n", "m", "conv"} (mLSTM) tensors with a leading `repeats`
-dimension.  A sliding-window model's cache holds min(window, capacity)
-rows; at `window` rows it is `repro`'s ring.
+(attention; {"k", "v", "xk", "xv"} with cross-attention) or {"C", "n", "m",
+"conv"} (mLSTM) tensors with a leading `repeats` dimension.  A
+sliding-window model's cache holds min(window, capacity) rows; at `window`
+rows it is `repro`'s ring.
 
 `repro` wrapped the train forward's layer scan in `jax.checkpoint` (remat),
 which only trades recomputation for activation memory; the port keeps
@@ -34,10 +41,15 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import kv_lengths
 
 from . import layers as L
+from . import moe as M
 from . import ssm as S
 
 DENSE_PATTERN = (("attn", "dense"),)
+MOE_PATTERN = (("attn", "moe"),)
+CROSS_PATTERN = (("attn_cross", "dense"),)
+ATTN_PATTERNS = (DENSE_PATTERN, MOE_PATTERN, CROSS_PATTERN)
 MLSTM_PATTERN = (("mlstm", "none"),)
+MOE_IMPLS = ("grouped", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,21 +67,40 @@ class ModelConfig:
     window: int | None = None         # sliding window (None = full)
     rope_theta: float = 10000.0
     ffn_act: str = "silu"
+    # moe
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    moe_renormalize: bool = True
+    moe_impl: str = "grouped"         # grouped (production) | dense (oracle)
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
     # mlstm
     ssm_conv_dim: int = 4
     ssm_chunk: int = 256
     mlstm_proj_factor: int = 2
+    # encoder (enc-dec archs)
+    enc_layers: int = 0
+    # modality frontend stubs: the caller passes the embeddings
+    frontend: str = "none"            # none | audio | patch
+    num_patches: int = 0              # vlm: image patches before the text
     dtype: torch.dtype = torch.bfloat16
     vocab_pad_multiple: int = 256
 
     def __post_init__(self):
-        dense = self.pattern == DENSE_PATTERN and self.ffn_act in L.ACTS
-        if not (dense or self.pattern == MLSTM_PATTERN):
+        attn = self.pattern in ATTN_PATTERNS and self.ffn_act in L.ACTS
+        if not (attn or self.pattern == MLSTM_PATTERN):
             raise NotImplementedError(
-                f"{self.name}: only the dense pattern {DENSE_PATTERN} (full "
-                f"or sliding-window attention) with an FFN gate in {tuple(L.ACTS)} "
-                f"and the mLSTM pattern {MLSTM_PATTERN} are ported; see "
-                "ROADMAP.md")
+                f"{self.name}: only the attention patterns {ATTN_PATTERNS} "
+                f"(full or sliding-window attention) with an FFN gate in "
+                f"{tuple(L.ACTS)} and the mLSTM pattern {MLSTM_PATTERN} are "
+                "ported; see ROADMAP.md")
+        if self.moe_impl not in MOE_IMPLS:
+            raise NotImplementedError(
+                f"{self.name}: moe_impl={self.moe_impl!r}; the port runs "
+                f"{MOE_IMPLS}: the all-to-all dispatch over a mesh waits for "
+                "the multi-device work (ROADMAP.md §1 item 6)")
 
     @property
     def repeats(self) -> int:
@@ -84,25 +115,57 @@ class ModelConfig:
         """Analytic parameter count, `repro`'s formula for the ported
         patterns (the profiling catalog's cost model reads it)."""
         d = self.d_model
-        if self.pattern == MLSTM_PATTERN:
-            dp = self.mlstm_proj_factor * d
-            block = (d + d * 2 * dp + self.ssm_conv_dim * dp + 3 * dp * dp
-                     + 2 * dp * self.num_heads + dp + dp * d
-                     + dp + 2 * self.num_heads)  # conv_b, b_i, b_f
-        else:
-            H, Hk, dh = self.num_heads, self.num_kv_heads, self.head_dim
-            block = (d + d * dh * (H + 2 * Hk) + H * dh * d
-                     + d + 3 * d * self.d_ff)
-        return 2 * self.padded_vocab * d + block * self.repeats + d
+        H, Hk, dh = self.num_heads, self.num_kv_heads, self.head_dim
+        attn = d * dh * (H + 2 * Hk) + H * dh * d
+        block = 0
+        for mixer, ffn in self.pattern:
+            block += d                                   # norm1
+            if mixer in ("attn", "attn_cross"):
+                block += attn
+            if mixer == "attn_cross":
+                block += attn + d                        # cross, norm_cross
+            elif mixer == "mlstm":
+                dp = self.mlstm_proj_factor * d
+                block += (d * 2 * dp + self.ssm_conv_dim * dp + 3 * dp * dp
+                          + 2 * dp * self.num_heads + dp + dp * d
+                          + dp + 2 * self.num_heads)     # conv_b, b_i, b_f
+            if ffn == "dense":
+                block += d + 3 * d * self.d_ff
+            elif ffn == "moe":
+                block += (d + d * self.num_experts
+                          + self.num_experts * 3 * d * self.moe_d_ff
+                          + 3 * d * self.moe_d_ff * self.num_shared_experts)
+        p = 2 * self.padded_vocab * d + block * self.repeats + d
+        if self.enc_layers:
+            p += self.enc_layers * (2 * d + attn + 3 * d * self.d_ff) + d
+        return p
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: its top-k experts and the
+        shared ones), `repro`'s formula."""
+        moe = sum(ffn == "moe" for _, ffn in self.pattern)
+        dead = (self.num_experts - self.top_k) * 3 * self.d_model \
+            * self.moe_d_ff
+        return self.param_count() - dead * moe * self.repeats
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    """An attention block of pattern position `desc`: pre-norm
+    self-attention; for `attn_cross`, a pre-norm cross-attention over the
+    encoder's output; then a pre-norm FFN, dense or the MoE."""
+
+    def __init__(self, cfg: ModelConfig, device,
+                 desc: tuple = DENSE_PATTERN[0]):
         super().__init__()
+        mixer, ffn = desc
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.dtype, device)
         self.attn = L.GQA(cfg, device)
+        if mixer == "attn_cross":
+            self.norm_cross = L.RMSNorm(cfg.d_model, cfg.dtype, device)
+            self.cross = L.CrossAttention(cfg, device)
         self.norm2 = L.RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.ffn = L.FFN(cfg.d_model, cfg.d_ff, cfg.dtype, device)
+        self.ffn = (M.MoE(cfg, device) if ffn == "moe" else
+                    L.FFN(cfg.d_model, cfg.d_ff, cfg.dtype, device))
 
 
 class MLSTMBlock(nn.Module):
@@ -117,17 +180,25 @@ class MLSTMBlock(nn.Module):
 
 class Transformer(nn.Module):
     """Parameters (uninitialised) on `device`; names follow `repro`'s tree,
-    with `blocks.<layer>` in place of the stacked `blocks[0]`."""
+    with `blocks.<layer>` in place of the stacked `blocks[0]` and
+    `enc_blocks.<layer>` in place of the stacked `enc_blocks`."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         d, V = cfg.d_model, cfg.padded_vocab
         self.embed = L.param((V, d), cfg.dtype, device)
-        block = MLSTMBlock if cfg.pattern == MLSTM_PATTERN else Block
-        self.blocks = nn.ModuleList(block(cfg, device)
-                                    for _ in range(cfg.num_layers))
+        if cfg.pattern == MLSTM_PATTERN:
+            self.blocks = nn.ModuleList(MLSTMBlock(cfg, device)
+                                        for _ in range(cfg.num_layers))
+        else:
+            self.blocks = nn.ModuleList(Block(cfg, device, cfg.pattern[0])
+                                        for _ in range(cfg.num_layers))
         self.final_norm = L.RMSNorm(d, cfg.dtype, device)
         self.lm_head = L.param((d, V), cfg.dtype, device)
+        if cfg.enc_layers:
+            self.enc_blocks = nn.ModuleList(Block(cfg, device)
+                                            for _ in range(cfg.enc_layers))
+            self.enc_final_norm = L.RMSNorm(d, cfg.dtype, device)
 
 
 # constant initial values and fixed init scales of `repro`'s mlstm_init
@@ -162,13 +233,15 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
-               device=None) -> tuple:
+               src_len: int = 0, device=None) -> tuple:
     """Decode cache, a tuple over pattern positions, each leaf with a leading
-    `repeats` dimension.  Dense: {"k", "v"}, each (repeats, batch, cap, Hk,
-    head_dim) zeros in cfg.dtype, where cap is kv_capacity, or
-    min(window, kv_capacity) for a sliding window (the ring's bound).
-    mLSTM: {"C", "n", "m"} in fp32 (m at -60) and "conv" in cfg.dtype, the
-    shapes of `ssm.mlstm_state_init`; kv_capacity does not apply."""
+    `repeats` dimension.  Attention: {"k", "v"}, each (repeats, batch, cap,
+    Hk, head_dim) zeros in cfg.dtype, where cap is kv_capacity, or
+    min(window, kv_capacity) for a sliding window (the ring's bound); an
+    `attn_cross` block adds {"xk", "xv"} of src_len rows (the encoder's
+    keys and values, which prefill writes).  mLSTM: {"C", "n", "m"} in fp32
+    (m at -60) and "conv" in cfg.dtype, the shapes of
+    `ssm.mlstm_state_init`; kv_capacity does not apply."""
     dev = resolve_device(device)
     R = cfg.repeats
     if cfg.pattern == MLSTM_PATTERN:
@@ -180,53 +253,93 @@ def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
                  "conv": conv.expand(R, *conv.shape).clone()},)
     cap = (kv_capacity if cfg.window is None
            else min(cfg.window, kv_capacity))
-    shape = (R, batch, cap, cfg.num_kv_heads, cfg.head_dim)
-    return tuple({"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                  "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
-                 for _ in cfg.pattern)
+    def zeros(rows: int) -> torch.Tensor:
+        return torch.zeros((R, batch, rows, cfg.num_kv_heads, cfg.head_dim),
+                           dtype=cfg.dtype, device=dev)
+
+    caches = []
+    for mixer, _ in cfg.pattern:
+        c = {"k": zeros(cap), "v": zeros(cap)}
+        if mixer == "attn_cross":
+            c.update(xk=zeros(src_len), xv=zeros(src_len))
+        caches.append(c)
+    return tuple(caches)
+
+
+def _scale(cfg: ModelConfig) -> torch.Tensor:
+    # sqrt(d_model) rounded to the model dtype first, as JAX's weak float is
+    return torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
 
 
 def _embed(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor):
-    # the scale is rounded to the model dtype first, as JAX's weak float is
-    return params.embed[tokens] * torch.tensor(math.sqrt(cfg.d_model),
-                                               dtype=cfg.dtype)
+    return params.embed[tokens] * _scale(cfg)
+
+
+def _embed_inputs(params: Transformer, cfg: ModelConfig, batch: dict):
+    """`repro`'s `_embed_inputs`: for a patch frontend, the patch embeddings
+    (B, n_p, d), cast to the model type, before the token embeddings, and
+    the whole sequence scaled by sqrt(d_model), patches included."""
+    dev = params.embed.device
+    x = _embed(params, cfg, torch.as_tensor(batch["tokens"],
+                                            device=dev).long())
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        patches = torch.as_tensor(batch["patch_embeds"], device=dev)
+        x = torch.cat([patches.to(cfg.dtype) * _scale(cfg), x], dim=1)
+    return x
+
+
+def _ffn(blk: Block, cfg: ModelConfig, x: torch.Tensor):
+    """The block's pre-norm FFN: (x + ffn(norm2(x)), the MoE's aux loss or
+    0.0)."""
+    h = L.rmsnorm(blk.norm2, x)
+    if isinstance(blk.ffn, M.MoE):
+        o, aux = M.moe_ffn(blk.ffn, h, cfg)
+        return x + o, aux
+    return x + L.ffn(blk.ffn, h, cfg.ffn_act), 0.0
 
 
 def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
             mode: str = "decode", cache: tuple | None = None, pos=None):
     """decode: batch={"tokens": (B, 1)}, cache, pos (int or (B,); the mLSTM
     ignores it) -> (logits (B, Vpad), cache).
-    prefill: batch={"tokens": (B, S)} -> (logits of the last position
-    (B, Vpad), a new cache of S rows (or the window's, ring-aligned), aux).
-    train: batch={"tokens": (B, S)} -> (logits (B, S, Vpad), aux).
-    aux is a zero scalar (no MoE).
+    prefill: batch={"tokens": (B, S)} (with "patch_embeds" (B, n_p, d) for
+    a patch frontend, "src_embeds" (B, S_src, d) for an encoder) ->
+    (logits of the last position (B, Vpad), a new cache of n_p + S rows (or
+    the window's, ring-aligned; the cross keys and values of S_src rows),
+    aux).
+    train: the same batch -> (logits (B, n_p + S, Vpad), aux).
+    aux is the sum of the layers' MoE aux losses, an fp32 scalar (zero
+    without MoE).
 
     In decode the cache is updated in place: `repro` wrote a new cache
     functionally, which at full width would copy every layer's cache on
     every step.  The returned cache is the object passed in."""
     mlstm = cfg.pattern == MLSTM_PATTERN
     if mode == "train":
-        return (_forward_train_mlstm if mlstm
-                else _forward_train_dense)(params, cfg, batch)
+        if mlstm:
+            return _forward_train_mlstm(params, cfg, batch)
+        return _forward_attn(params, cfg, batch, prefill=False)
     if mode == "prefill":
-        return (_forward_prefill_mlstm if mlstm
-                else _forward_prefill_dense)(params, cfg, batch)
+        if mlstm:
+            return _forward_prefill_mlstm(params, cfg, batch)
+        return _forward_attn(params, cfg, batch, prefill=True)
     if mode != "decode" or cache is None:
         raise NotImplementedError(
             f"mode={mode!r}: the port runs train, prefill, and decode "
             "against a cache; see ROADMAP.md")
     if mlstm:
         return _forward_decode_mlstm(params, cfg, batch, cache)
-    return _forward_decode_dense(params, cfg, batch, cache, pos)
+    return _forward_decode_attn(params, cfg, batch, cache, pos)
 
 
-def _forward_decode_dense(params: Transformer, cfg: ModelConfig, batch: dict,
-                          cache: tuple, pos):
+def _forward_decode_attn(params: Transformer, cfg: ModelConfig, batch: dict,
+                         cache: tuple, pos):
     dev = params.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     B = tokens.shape[0]
     H, dh = cfg.num_heads, cfg.head_dim
-    kc_all, vc_all = cache[0]["k"], cache[0]["v"]
+    c = cache[0]
+    kc_all, vc_all = c["k"], c["v"]
     cap = kc_all.shape[2]
     # `repro`'s ring: a sliding-window cache of exactly `window` rows, written
     # at slot pos % window.  Its valid slots are the first min(pos + 1, W)
@@ -241,9 +354,17 @@ def _forward_decode_dense(params: Transformer, cfg: ModelConfig, batch: dict,
     if ring:
         host_lens = torch.clamp(host_lens, max=cap)
     host_lens = kv_lengths(host_lens, B, cap, torch.device("cpu"))
-    # one copy to the card: the positions and the lengths side by side
-    pos_lens = torch.stack([host_pos.int(), host_lens]).to(dev)
-    pos_b, lens = pos_lens[0].long(), pos_lens[1]              # (B,) each
+    # one copy to the card: the positions, the lengths and the cross
+    # attention's source rows (every row of the cross cache; 1, unread,
+    # without one) side by side
+    src_len = c["xk"].shape[2] if "xk" in c else 1
+    if src_len < 1:
+        raise ValueError("the cross cache holds no source rows: size it with "
+                         "init_cache(..., src_len=...) and fill it by prefill")
+    pos_lens = torch.stack([host_pos.int(), host_lens,
+                            torch.full((B,), src_len, dtype=torch.int32)]
+                           ).to(dev)
+    pos_b, lens, src_lens = pos_lens[0].long(), pos_lens[1], pos_lens[2]
     # attention reads the caches cut to the longest live sequence (a view):
     # no row past it is visible, and the kernel sizes its split from it
     live = int(host_lens.max())
@@ -262,27 +383,92 @@ def _forward_decode_dense(params: Transformer, cfg: ModelConfig, batch: dict,
         # (`repro` sent MHA down its dense path: the same function)
         o = ops.decode_attention(q, kc[:, :live], vc[:, :live], lens)
         x = x + o.reshape(B, 1, H * dh) @ blk.attn.w_o
-        h = L.rmsnorm(blk.norm2, x)
-        x = x + L.ffn(blk.ffn, h, cfg.ffn_act)
+        if "xk" in c:
+            # the encoder's keys and values, every source row visible
+            h = L.rmsnorm(blk.norm_cross, x)
+            q = L.cross_project_q(blk.cross, h, cfg)
+            o = ops.decode_attention(q, c["xk"][r], c["xv"][r], src_lens)
+            x = x + o.reshape(B, 1, H * dh) @ blk.cross.w_o
+        x, _ = _ffn(blk, cfg, x)
     x = L.rmsnorm(params.final_norm, x)
     return x[:, 0] @ params.lm_head, cache
 
 
-def _forward_train_dense(params: Transformer, cfg: ModelConfig, batch: dict):
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)
-    rope = L.rope_table(positions[None], cfg.head_dim, cfg.rope_theta)
-    x = _embed(params, cfg, tokens)
+def _encoder_forward(params: Transformer, cfg: ModelConfig, batch: dict,
+                     attend):
+    """The bidirectional encoder over the stub frame embeddings
+    `batch["src_embeds"]` (B, S_src, d), with rotary at arange(S_src);
+    `attend` is the train or the prefill attention.  A batch without them
+    raises KeyError, as `repro`'s forward does (ROADMAP.md F6)."""
+    if "src_embeds" not in batch:
+        raise KeyError(f"src_embeds: {cfg.name} encodes the batch's source "
+                       "frame embeddings, and `repro` raises KeyError here "
+                       "too (ROADMAP.md F6)")
+    dev = params.embed.device
+    x = torch.as_tensor(batch["src_embeds"], device=dev).to(cfg.dtype) \
+        * _scale(cfg)
+    B, S_src, _ = x.shape
+    rope = L.rope_table(torch.arange(S_src, device=dev)[None], cfg.head_dim,
+                        cfg.rope_theta)
+    for blk in params.enc_blocks:
+        h = L.rmsnorm(blk.norm1, x)
+        q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
+        o = attend(q, k, v, causal=False)
+        x = x + o.reshape(B, S_src, cfg.num_heads * cfg.head_dim) \
+            @ blk.attn.w_o
+        x, _ = _ffn(blk, cfg, x)
+    return L.rmsnorm(params.enc_final_norm, x)
+
+
+def _forward_attn(params: Transformer, cfg: ModelConfig, batch: dict,
+                  prefill: bool):
+    """Train (`repro`'s materialised `layers.attention` under autograd) and
+    prefill (the port's flash kernel on the card, where `repro` ran its
+    materialised attention: F3's documented divergence, held at the
+    reference's tolerances) of the attention patterns.  q and k come out of
+    `apply_rope` and v out of a reshape, all contiguous, so the bf16
+    kernel's 16-byte row check holds at every head width the configs have
+    (d 120: 240-byte rows) and no copy is made.  Cross-attention sees every
+    source row (non-causal, Sq != Skv) and its keys and values have no
+    rotary embedding."""
+    attend = ops.flash_attention if prefill else L.attention
+    enc = (_encoder_forward(params, cfg, batch, attend) if cfg.enc_layers
+           else None)
+    x = _embed_inputs(params, cfg, batch)
+    B, S, _ = x.shape
+    H, dh, W = cfg.num_heads, cfg.head_dim, cfg.window
+    rope = L.rope_table(torch.arange(S, device=x.device)[None], dh,
+                        cfg.rope_theta)
+    leaves = {"k": [], "v": [], "xk": [], "xv": []}
+    aux = torch.zeros((), device=x.device)
     for blk in params.blocks:
         h = L.rmsnorm(blk.norm1, x)
         q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
-        o = L.attention(q, k, v, causal=True, window=cfg.window)
-        x = x + o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ blk.attn.w_o
-        h = L.rmsnorm(blk.norm2, x)
-        x = x + L.ffn(blk.ffn, h, cfg.ffn_act)
-    x = L.rmsnorm(params.final_norm, x)
-    return x @ params.lm_head, torch.zeros((), device=x.device)
+        o = attend(q, k, v, causal=True, window=W)
+        if prefill and W is not None and S > W:
+            # the last W rows, rolled so that position p sits at slot p % W
+            # (`repro`'s ring-aligned prefill cache)
+            k, v = (torch.roll(t[:, -W:], S % W, dims=1) for t in (k, v))
+        if prefill:
+            leaves["k"].append(k)
+            leaves["v"].append(v)
+        x = x + o.reshape(B, S, H * dh) @ blk.attn.w_o
+        if enc is not None:
+            h = L.rmsnorm(blk.norm_cross, x)
+            q = L.cross_project_q(blk.cross, h, cfg)
+            xk, xv = L.cross_project_kv(blk.cross, enc, cfg)
+            o = attend(q, xk, xv, causal=False)
+            if prefill:
+                leaves["xk"].append(xk)
+                leaves["xv"].append(xv)
+            x = x + o.reshape(B, S, H * dh) @ blk.cross.w_o
+        x, a = _ffn(blk, cfg, x)
+        aux = aux + a
+    if not prefill:
+        x = L.rmsnorm(params.final_norm, x)
+        return x @ params.lm_head, aux
+    cache = ({name: torch.stack(t) for name, t in leaves.items() if t},)
+    return _last_logits(params, x), cache, aux
 
 
 def _forward_train_mlstm(params: Transformer, cfg: ModelConfig, batch: dict):
@@ -316,38 +502,6 @@ def _forward_decode_mlstm(params: Transformer, cfg: ModelConfig, batch: dict,
 def _last_logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """lm_head on the last position only (the norm is per position)."""
     return (L.rmsnorm(params.final_norm, x[:, -1:]) @ params.lm_head)[:, 0]
-
-
-def _forward_prefill_dense(params: Transformer, cfg: ModelConfig,
-                           batch: dict):
-    """Prefill attention is the port's flash kernel on the card, where
-    `repro` ran its materialised `L.attention` (F3's documented divergence,
-    held at the reference's tolerances).  q and k come out of `apply_rope`
-    and v out of a reshape, all contiguous, so the bf16 kernel's 16-byte row
-    check holds at every head width the configs have (d 120: 240-byte rows)
-    and no copy is made."""
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
-    B, S = tokens.shape
-    W = cfg.window
-    positions = torch.arange(S, device=tokens.device)
-    rope = L.rope_table(positions[None], cfg.head_dim, cfg.rope_theta)
-    ks, vs = [], []
-    x = _embed(params, cfg, tokens)
-    for blk in params.blocks:
-        h = L.rmsnorm(blk.norm1, x)
-        q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
-        o = ops.flash_attention(q, k, v, causal=True, window=W)
-        if W is not None and S > W:
-            # the last W rows, rolled so that position p sits at slot p % W
-            # (`repro`'s ring-aligned prefill cache)
-            k, v = (torch.roll(t[:, -W:], S % W, dims=1) for t in (k, v))
-        ks.append(k)
-        vs.append(v)
-        x = x + o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ blk.attn.w_o
-        h = L.rmsnorm(blk.norm2, x)
-        x = x + L.ffn(blk.ffn, h, cfg.ffn_act)
-    cache = ({"k": torch.stack(ks), "v": torch.stack(vs)},)
-    return _last_logits(params, x), cache, torch.zeros((), device=x.device)
 
 
 def _forward_prefill_mlstm(params: Transformer, cfg: ModelConfig,

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import param
+from .layers import param, silu
 
 
 class MLSTM(nn.Module):
@@ -43,13 +43,6 @@ class MLSTM(nn.Module):
         self.b_f = param((H,), f32, device)
         self.gn_scale = param((dp,), dt, device)
         self.down_proj = param((dp, d), dt, device)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """`jax.nn.silu`'s own formula, x * (1 / (1 + exp(-x))), op by op in x's
-    type.  `F.silu` rounds once; in bf16 that moves values by an ulp, which
-    the mLSTM's normalisation then amplifies past the bf16 limit."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

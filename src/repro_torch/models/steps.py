@@ -32,17 +32,29 @@ def make_decode_step(cfg: ModelConfig):
     return decode_step
 
 
+def _num_patches(cfg: ModelConfig, batch: dict) -> int:
+    """Positions the patch frontend puts before the tokens."""
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        return batch["patch_embeds"].shape[1]
+    return 0
+
+
 def greedy_generate(cfg: ModelConfig, params, batch: dict,
                     steps: int) -> torch.Tensor:
     """Prefill, then `steps` greedy decode steps: (B, steps + 1) token ids on
     the params' device, the first from the prefill's logits.  The decode
-    cache has room for S0 + steps rows and starts from the prefill's; the
-    argmax runs over the first vocab_size columns on the device."""
+    cache has room for S0 + steps rows, S0 the prompt's positions (its
+    patches and tokens), a cross cache of the source's rows, and starts from
+    the prefill's; the argmax runs over the first vocab_size columns on the
+    device."""
     logits, cache = make_prefill(cfg)(params, batch)
     decode = make_decode_step(cfg)
-    B, S0 = batch["tokens"].shape
+    B, S_tok = batch["tokens"].shape
+    S0 = S_tok + _num_patches(cfg, batch)
+    src_len = batch["src_embeds"].shape[1] if "src_embeds" in batch else 0
     cache = _copy_prefix_cache(
-        cache, init_cache(cfg, B, S0 + steps, device=logits.device))
+        cache, init_cache(cfg, B, S0 + steps, src_len=src_len,
+                          device=logits.device))
     toks = [logits[:, :cfg.vocab_size].argmax(-1)]
     for i in range(steps):
         logits, cache = decode(params, cache, toks[-1][:, None], S0 + i)
@@ -51,13 +63,14 @@ def greedy_generate(cfg: ModelConfig, params, batch: dict,
 
 
 def _copy_prefix_cache(src: tuple, dst: tuple) -> tuple:
-    """The prefill cache `src` in the decode cache `dst`: k and v written
-    into dst's first rows (in place), the mLSTM state taken whole."""
+    """The prefill cache `src` in the decode cache `dst`: the attention
+    leaves (k, v and the cross keys and values xk, xv) written into dst's
+    first rows (in place), the mLSTM state taken whole."""
     out = []
     for s, d in zip(src, dst):
         d = dict(d)
         for name, v in s.items():
-            if name in ("k", "v"):
+            if name in ("k", "v", "xk", "xv"):
                 d[name][:, :, :v.shape[2]].copy_(v)
             else:
                 d[name] = v
@@ -85,15 +98,21 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict):
-    """Next-token LM loss.  Returns (loss, (ce, aux)); aux is the MoE
-    auxiliary loss, zero for the ported patterns."""
+    """Next-token LM loss plus the MoE aux loss, `repro`'s: returns
+    (ce + moe_aux_weight * aux, (ce, aux)).  The whole batch goes to the
+    forward (patch or source embeddings too), and the patch positions are
+    cut out of the logits before the loss."""
     toks = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
     targets = torch.cat([toks[:, 1:], toks[:, :1]], dim=1)
     mask = torch.ones(toks.shape, dtype=torch.float32, device=toks.device)
     mask[:, -1] = 0.0
-    logits, aux = forward(params, cfg, {"tokens": toks}, mode="train")
+    logits, aux = forward(params, cfg, {**batch, "tokens": toks},
+                          mode="train")
+    n_p = _num_patches(cfg, batch)
+    if n_p:
+        logits = logits[:, n_p:]
     ce = cross_entropy(logits, targets, cfg.vocab_size, mask)
-    return ce, (ce, aux)
+    return ce + cfg.moe_aux_weight * aux, (ce, aux)
 
 
 def make_eval_step(cfg: ModelConfig):
@@ -127,7 +146,7 @@ def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1):
             finally:
                 for w in weights:
                     w.requires_grad_(False)
-        return loss.detach(), ce.detach(), aux, grads
+        return loss.detach(), ce.detach(), aux.detach(), grads
 
     def train_step(params, opt_state, batch):
         weights = list(params.parameters())

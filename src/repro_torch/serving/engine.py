@@ -16,8 +16,11 @@ the decode step, and the greedy argmax is taken on the device, so each step
 copies B token ids to the host instead of the (B, Vpad) logits.  Greedy
 results are the same.
 
-Both ported patterns are served.  A reused slot is not reset, as in
-`repro`: a dense slot's stale KV rows are never read (attention reads the
+Plain decoder LMs are served (the dense and MoE attention patterns and the
+mLSTM); a model with a frontend or an encoder is refused, as `repro`'s
+engine refuses it.  MoE decode routes each slot's token alone (one
+dispatch group a row, capacity 1), so ragged slots do not disturb each
+other.  A reused slot is not reset, as in `repro`: an attention slot's stale KV rows are never read (attention reads the
 first pos + 1 rows), but the mLSTM state (C, n, m and the conv window) is
 not masked, so a request admitted into a freed slot starts from the state
 its predecessor left.  Its tokens then differ from `greedy_generate`'s on
@@ -59,6 +62,9 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
                  ecfg: EngineConfig = EngineConfig()):
+        if cfg.frontend != "none" or cfg.enc_layers:
+            raise ValueError(f"{cfg.name}: the engine serves plain decoder "
+                             "LMs (no frontend, no encoder), as `repro`'s")
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg

@@ -147,6 +147,12 @@ def test_kernel_refuses_cpu_tensors():
     (1, 1000, 1, 1, 256, 999, 128),
     (3, 2048, 24, 8, 128, [1, 1500, 2048], 512),
     (4, 1024, 64, 8, 128, [1, 129, 1000, 1024], 256),
+    # seamless-m4t-medium's cross attention (d 64, MHA) over 1024 source
+    # rows; granite-moe-1b-a400m's self attention (d 64, G 2), ragged and
+    # full
+    (2, 1024, 16, 16, 64, 1024, 512),
+    (8, 4096, 16, 8, 64, [1, 17, 512, 1000, 2048, 3000, 4095, 4096], 512),
+    (8, 4096, 16, 8, 64, 4096, 512),
 ])
 def test_kernel_vs_plain_on_card(dtype, B, Skv, H, Hk, d, kv_len, block_k):
     if not torch.cuda.is_available():

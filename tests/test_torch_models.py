@@ -118,9 +118,14 @@ def test_only_decode_is_ported(setup):
                 mode="train_hidden")
 
 
+# ReLU (seamless-m4t-medium) and the MoE pattern (granite-moe-1b-a400m)
+# are ported now: a jamba-style super-block and the all-to-all MoE dispatch
+# take their places
 @pytest.mark.parametrize("change", [{"pattern": (("mamba", "dense"),)},
-                                    {"ffn_act": "relu"},
-                                    {"pattern": (("attn", "moe"),)}])
+                                    {"pattern": (("attn", "moe"),
+                                                 ("mamba", "moe"))},
+                                    {"pattern": (("attn", "moe"),),
+                                     "moe_impl": "a2a"}])
 def test_unported_model_variants_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(ARCH, smoke=True, **change)

@@ -242,6 +242,15 @@ def test_kernels_refuse_cpu_tensors():
     (1, 65, 130, 4, 1, 80, True, None),
     (1, 200, 200, 2, 2, 256, True, 64),
     (1, 96, 160, 4, 2, 24, False, 40),
+    # seamless-m4t-medium's encoder (non-causal, d 64, MHA), its cross
+    # attention (Sq != Skv) and its decoder's self attention;
+    # granite-moe-1b-a400m (d 64, G 2); pixtral-12b (1024 patches + 1024
+    # tokens, d 128, G 4)
+    (2, 1024, 1024, 16, 16, 64, False, None),
+    (2, 512, 1024, 16, 16, 64, False, None),
+    (2, 512, 512, 16, 16, 64, True, None),
+    (2, 2048, 2048, 16, 8, 64, True, None),
+    (1, 2048, 2048, 32, 8, 128, True, None),
 ])
 def test_flash_kernel_vs_plain_on_card(dtype, B, Sq, Skv, H, Hk, d, causal,
                                        window):
