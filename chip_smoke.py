@@ -19,7 +19,11 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               jamba-1.5-large's Mamba layer, di 16384, N 16, S4096); and
               phase 7's own decode calls (B1 and B2, caches of 1039, 2079
               and 4096 rows) and prefills (mistral-nemo-12b B2 S2048,
-              gemma-7b S1024);
+              gemma-7b S1024); then both attention kernels on MLA's route
+              (deepseek-v2-lite-16b: q.k at 192, v at 128 zero-padded to
+              it and the output cut back; decode at B8/Skv4096 ragged and
+              full and at phase 14's generate calls, prefill at B2 S2048;
+              both at the SMOKE widths 24 and 16) and at d 192 unpadded;
   4. parity   SMOKE configs in fp32, the model on the card (through the
               kernels) against the same weights on the CPU (plain path):
               mistral-nemo-12b's decode logits and the serving engine's
@@ -72,7 +76,11 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               (d 120 and d 256) and phase 14's (d 64 decode at G 1 and 2;
               flash for seamless-m4t-medium's encoder, cross and self
               attention, granite-moe-1b-a400m and pixtral-12b), in CUDA
-              graphs, each beside its bound;
+              graphs, each beside its bound; and both at deepseek-v2-lite-
+              16b's MLA shapes (decode B8/Skv4096, prefill B2 S2048, v
+              padded to 192) beside the bound of the model's own work (q.k
+              192, v 128) and SDPA at those widths, with the kernels SDPA
+              ran;
  11. fleet    MuxFlow's scheduling step at the paper's 20,000 GPUs: phase 8's
               card matrix and card-trained predictor drive
               `run_policy(MeasuredMuxFlowPolicy(matrix=card_matrix), ...)`
@@ -119,7 +127,7 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               the torch engine, every artifact and WAL segment byte-equal;
               `chaos --scenario chaos-storm --engine torch`, every invariant
               passing.
- 14. zoo      the rest of the GQA model zoo: pixtral-12b (1024 patch
+ 14. zoo      the rest of the model zoo: pixtral-12b (1024 patch
               embeddings before the tokens), seamless-m4t-medium (a 12-layer
               encoder over 1024 source frames, cross attention, ReLU) and
               granite-moe-1b-a400m (32 experts, top 8, grouped dispatch).
@@ -129,15 +137,23 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               engine tokens under ragged slots.  Then in bf16 at FULL:
               `greedy_generate` (pixtral-12b B1 x (1024 patches + 1024
               tokens), seamless-m4t-medium B2 x 512 tokens over 1024
-              frames, granite-moe-1b-a400m B2 x 2048, 31 steps each) with
-              the launches required exactly (flash once a layer, the
-              encoder's and the cross attention's too; decode once a layer
-              a step, twice with cross attention); granite served by
-              `serve.run` alone and with `share=True` and by the engine
-              with ragged requests; granite trained through
+              frames, granite-moe-1b-a400m B2 x 2048 at 6 of its 24
+              layers, 31 steps each) with the launches required exactly
+              (flash once a layer, the encoder's and the cross attention's
+              too; decode once a layer a step, twice with cross attention);
+              granite served by `serve.run` alone and with `share=True` and
+              by the engine with ragged requests (6 layers); granite
+              trained through
               `launch.train.run` (B2 x 512) and one train step's moe_aux,
               three AdamW steps of seamless-m4t-medium on batches with
-              source frames, and pixtral-12b's eval step.
+              source frames, and pixtral-12b's eval step.  Then
+              deepseek-v2-lite-16b (MLA over a latent cache, 64 experts top
+              6 + 2 shared): SMOKE parity as above (prefill, decode and
+              greedy tokens; decode at ragged positions and the engine's
+              tokens), then at FULL on one set of weights `greedy_generate`
+              B2 x 2048, 31 steps (flash 27, decode 837 launches), the
+              engine with ragged requests, and the eval step B2 x 512 with
+              its moe_aux (its AdamW state, 194.5 GB, does not fit).
 Then one line of each phase's seconds.  The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
@@ -203,6 +219,21 @@ ZOO2_GEN_DECODE = [(1, 2079, 32, 8, 128, 2049), (1, 2079, 32, 8, 128, 2079),
                    (2, 543, 16, 16, 64, [543, 543]),
                    (2, 2079, 16, 8, 64, [2049, 2049]),
                    (2, 2079, 16, 8, 64, [2079, 2079])]
+# deepseek-v2-lite-16b's MLA (phase 14): q.k at 192 (128 + the 64-wide
+# rotary part) and v at 128, zero-padded to 192 on the way into the kernels
+# and cut back after (`layers.pad_v`), MHA.  (B, Skv, H, dq, dv, kv_len) of
+# its decode: B8 on a 4096-row cache, ragged and full; phase 14's generate
+# calls at their first and last step (2048 + 31 rows); the SMOKE widths 24
+# and 16; then the kernel at d 192 with a v of that width (nothing padded).
+# (B, S, H, dq, dv) of its causal prefill: phase 14's B2 x 2048, the SMOKE
+# widths, and the kernel at d 192 unpadded
+MLA_DECODE = [(8, 4096, 16, 192, 128, RAGGED), (8, 4096, 16, 192, 128, 4096),
+              (2, 2079, 16, 192, 128, [2049, 2049]),
+              (2, 2079, 16, 192, 128, [2079, 2079]),
+              (4, 64, 4, 24, 16, [1, 9, 40, 64]),
+              (8, 4096, 16, 192, 192, RAGGED)]
+MLA_FLASH = [(2, 2048, 16, 192, 128), (2, 21, 4, 24, 16),
+             (2, 2048, 16, 192, 192)]
 # (B, Sq, Skv, H, Hk, d, causal, window): tests/test_kernels.py:20-26, the
 # catalog's flash-prefill, ragged tiles at d 80, a window without causal, d 256
 FLASH_SHAPES = [
@@ -373,9 +404,11 @@ def phase_build() -> None:
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version; returns each kernel's max abs
     error at its full-width, timed shape."""
-    return {"decode_attention": check_decode(torch),
+    errs = {"decode_attention": check_decode(torch),
             "flash_attention": check_flash(torch),
             "ssm_scan": check_ssm(torch)}
+    check_mla(torch)
+    return errs
 
 
 def check_decode(torch) -> float:
@@ -519,6 +552,59 @@ def check_flash(torch) -> float:
           tol="atol:2e-5,rtol:fp32=2e-5,bf16=2e-5+2**-8",
           against="plain_in_fp32")
     return errs[(FLASH_MAIN, "bfloat16")]
+
+
+def check_mla(torch) -> None:
+    """Both attention kernels on MLA's route, v zero-padded to the q.k width
+    and the output cut back (`layers.pad_v`), against the plain versions on
+    the same route in fp32, under decode's rule; K is a strided view, as
+    the decode kernel reads a cache.  Decode at MLA_DECODE in bf16 and
+    fp32, prefill at MLA_FLASH in bf16 (and fp32 at the SMOKE widths)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rtol = {torch.float32: 2e-5, torch.bfloat16: 2e-5 + 2**-8}
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, Skv, H, dq, dv, kv_len in MLA_DECODE:
+            q = torch.randn(B, 1, H, dq, generator=gen, device=dev).to(dtype)
+            k = torch.randn(B, Skv, 2 * H, dq, generator=gen,
+                            device=dev).to(dtype)[:, :, :H]
+            v = torch.randn(B, Skv, H, dv, generator=gen, device=dev).to(dtype)
+            lens = (torch.tensor(kv_len, dtype=torch.int32, device=dev)
+                    if isinstance(kv_len, list) else kv_len)
+            out = L.pad_v(da.decode_attention_cuda)(q, k, v, lens)
+            torch.cuda.synchronize()
+            require(tuple(out.shape) == (B, 1, H, dv), "MLA decode shape")
+            want = L.pad_v(da.decode_attention_plain)(q.float(), k.float(),
+                                                      v.float(), lens)
+            key = ("decode", dq, dv, str(dtype).split(".")[1])
+            errs[key] = max(errs.get(key, 0.0),
+                            compare(torch, out, want, 2e-5, rtol[dtype]))
+        for B, S, H, dq, dv in MLA_FLASH:
+            if dtype == torch.float32 and dq > 24:
+                continue
+            q, k = (torch.randn(B, S, H, dq, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            v = torch.randn(B, S, H, dv, generator=gen, device=dev).to(dtype)
+            out = L.pad_v(fa.flash_attention_cuda)(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            require(tuple(out.shape) == (B, S, H, dv), "MLA prefill shape")
+            want = L.pad_v(fa.flash_attention_plain)(
+                q.float(), k.float(), v.float(), causal=True)
+            errs[("flash", dq, dv, str(dtype).split(".")[1])] = compare(
+                torch, out, want, 2e-5, rtol[dtype])
+            del q, k, v, out, want
+    torch.cuda.empty_cache()
+    phase("3/14 kernels", kernel="decode_attention+flash_attention",
+          route="mla_v_zero_padded", cases=len(MLA_DECODE) * 2
+          + len(MLA_FLASH) + 1,
+          **{f"max_abs_err_{kind}_qk{dq}_v{dv}_{dt}": f"{e:.3e}"
+             for (kind, dq, dv, dt), e in sorted(errs.items())},
+          tol="atol:2e-5,rtol:fp32=2e-5,bf16=2e-5+2**-8",
+          against="plain_in_fp32_same_route")
 
 
 def ssm_args(torch, gen, B: int, S: int, di: int, N: int,
@@ -1137,9 +1223,88 @@ def checkpoint_roundtrip(torch) -> None:
 
 
 def phase_timing(torch, launches: dict, max_err: dict) -> list:
-    return [time_decode(torch, launches, max_err["decode_attention"]),
-            time_flash(torch, launches, max_err["flash_attention"]),
-            time_ssm(torch, launches, max_err["ssm_scan"])]
+    kernels = [time_decode(torch, launches, max_err["decode_attention"]),
+               time_flash(torch, launches, max_err["flash_attention"]),
+               time_ssm(torch, launches, max_err["ssm_scan"])]
+    time_mla(torch)
+    return kernels
+
+
+def sdpa_backend(torch, fn) -> str:
+    """The CUDA kernels one call of `fn` (an SDPA call) ran, by name under
+    torch.profiler: which of SDPA's backends it took."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if getattr(e, "device_time_total", 0) > 0})
+    return "|".join(n[:60] for n in names)
+
+
+def time_mla(torch) -> None:
+    """Both kernels at deepseek-v2-lite-16b's MLA shapes (MLA_DECODE[1],
+    MLA_FLASH[0]), in CUDA graphs, on v already zero-padded to 192 (the
+    kernel's call; the pad is the model's, timed by launch/profile.py).
+    The bound is that of the model's own work, q.k at 192 and v at 128, so
+    the padding's waste shows; the padded read's bytes bound is printed
+    beside.  SDPA runs at the model's widths (v 128, no padding), and the
+    kernels it ran are named."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    saved = da.launches, fa.launches
+    B, Skv, H, dq, dv, _ = MLA_DECODE[1]
+    q = torch.randn(B, 1, H, dq, generator=gen, device=dev).to(bf16)
+    k = torch.randn(B, Skv, H, dq, generator=gen, device=dev).to(bf16)
+    v = torch.randn(B, Skv, H, dv, generator=gen, device=dev).to(bf16)
+    vp = F.pad(v, (0, dq - dv))
+    lens = torch.full((B,), Skv, dtype=torch.int32, device=dev)
+    mask = torch.ones(B, 1, 1, Skv, dtype=torch.bool, device=dev)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask)
+    nbytes = (B * Skv * H * (dq + dv) + B * H * (dq + dv)) * 2 + 4 * B
+    bound_ms, by = bound(nbytes, {"bf16": (2 * B * H * Skv * (dq + dv),
+                                           PEAK_FLOPS["bfloat16"])})
+    padded_ms = (2 * B * Skv * H * dq * 2) / PEAK_BYTES_S * 1e3
+    phase("10/14 timing", kernel="decode_attention", model="deepseek_mla",
+          shape=f"B{B}_Skv{Skv}_H{H}_Hk{H}_qk{dq}_v{dv}_padded_to_{dq}_bf16_"
+          f"kvlen{Skv}",
+          graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
+              q, k, vp, lens)),
+          library_graph_ms=graph_ms(torch, sdpa),
+          library_backend=sdpa_backend(torch, sdpa), bound_ms=bound_ms,
+          bound_by=by, bytes=nbytes, padded_read_bound_ms=padded_ms)
+    del q, k, v, vp
+    B, S, H, dq, dv = MLA_FLASH[0]
+    q, k = (torch.randn(B, S, H, dq, generator=gen, device=dev).to(bf16)
+            for _ in range(2))
+    v = torch.randn(B, S, H, dv, generator=gen, device=dev).to(bf16)
+    vp = F.pad(v, (0, dq - dv))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    visible = S * (S + 1) // 2
+    flops = 2 * B * H * visible * (dq + dv)
+    nbytes = (2 * B * S * H * dq + 2 * B * S * H * dv) * 2
+    bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
+    phase("10/14 timing", kernel="flash_attention", model="deepseek_mla",
+          shape=f"B{B}_S{S}_H{H}_Hk{H}_qk{dq}_v{dv}_padded_to_{dq}_bf16_"
+          "causal", bf16_tile=fa.tile_plan(dq),
+          graph_ms=graph_ms(torch, lambda: fa.flash_attention_cuda(
+              q, k, vp, causal=True)),
+          library_graph_ms=graph_ms(torch, sdpa),
+          library_backend=sdpa_backend(torch, sdpa), bound_ms=bound_ms,
+          bound_by=by, flops=flops, bytes=nbytes,
+          padded_bound_ms=2 * B * H * visible * 2 * dq
+          / PEAK_FLOPS["bfloat16"] * 1e3)
+    del q, k, v, vp
+    da.launches, fa.launches = saved     # launches to time do not count
+    torch.cuda.empty_cache()
 
 
 def decode_inputs(torch, gen, B: int, Skv: int, H: int, Hk: int, d: int):
@@ -2118,13 +2283,17 @@ def phase_durable(torch, control: dict) -> None:
 
 
 # ------------------------------------------------------------------ phase 14
-# phase 14: the rest of the GQA zoo.  (arch, batch, prompt tokens, decode
-# steps) of its generate runs at full width; pixtral-12b's prompt also holds
-# its 1024 patch embeddings before the tokens, seamless-m4t-medium's batch
-# ZOO2_FRAMES source frame embeddings
-ZOO2_GENERATE = [("pixtral-12b", 1, 1024, 31),
-                 ("seamless-m4t-medium", 2, 512, 31),
-                 ("granite-moe-1b-a400m", 2, 2048, 31)]
+# phase 14: the rest of the zoo.  (arch, batch, prompt tokens, decode steps,
+# layers) of its generate runs at full width, layers None being the
+# config's depth; pixtral-12b's prompt also holds its 1024 patch embeddings
+# before the tokens, seamless-m4t-medium's batch ZOO2_FRAMES source frame
+# embeddings.  granite-moe-1b-a400m's generate and engine run GRANITE_CUT of
+# its 24 layers since deepseek-v2-lite-16b came in (the script past 240 s):
+# deepseek's runs cover the grouped MoE through the same paths at full depth
+GRANITE_CUT = 6
+ZOO2_GENERATE = [("pixtral-12b", 1, 1024, 31, None),
+                 ("seamless-m4t-medium", 2, 512, 31, None),
+                 ("granite-moe-1b-a400m", 2, 2048, 31, GRANITE_CUT)]
 ZOO2_FRAMES = 1024
 ZOO2_TRAIN_SEQ = 512          # tokens a row of the train batches (B2)
 
@@ -2200,10 +2369,12 @@ def zoo_parity(torch, arch: str) -> float:
     return err
 
 
-def zoo_generate(torch, arch: str, B: int, S: int, steps: int) -> dict:
-    """`greedy_generate` at full width in bf16 with its prefill timed alone
-    first; the launches of the generate run, required exactly.  Returns
-    them."""
+def zoo_generate(torch, arch: str, B: int, S: int, steps: int,
+                 layers: int | None = None, params=None) -> dict:
+    """`greedy_generate` at full width in bf16 (`layers` of the config's
+    layers, or all; on `params`, or weights drawn from seed 0) with its
+    prefill timed alone first; the launches of the generate run, required
+    exactly.  Returns them."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -2212,8 +2383,11 @@ def zoo_generate(torch, arch: str, B: int, S: int, steps: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(arch, smoke=False)
-    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    cfg = get_config(arch, smoke=False,
+                     **({"num_layers": layers} if layers else {}))
+    if params is None:
+        params = init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
     batch = zoo_batch(torch, cfg, B, S,
                       torch.Generator(device="cuda").manual_seed(1),
                       ZOO2_FRAMES)
@@ -2243,8 +2417,8 @@ def zoo_generate(torch, arch: str, B: int, S: int, steps: int) -> dict:
         ((out >= 0) & (out < cfg.vocab_size)).all()),
         f"{arch}: generated ids of the wrong shape or outside the "
         "vocabulary")
-    phase("14/14 zoo.generate", config=f"{arch}/FULL/bf16", batch=B,
-          prompt_tokens=S,
+    phase("14/14 zoo.generate", config=f"{arch}/FULL/bf16",
+          layers=cfg.num_layers, batch=B, prompt_tokens=S,
           patches=cfg.num_patches if cfg.frontend == "patch" else 0,
           source_frames=ZOO2_FRAMES if cfg.enc_layers else 0,
           decode_steps=steps, new_tokens=B * (steps + 1),
@@ -2263,15 +2437,11 @@ def zoo_serve(torch) -> int:
     (AdamW steps of a second copy, the loss with the MoE aux), then the
     serving engine with ragged requests.  Returns the decode kernel's
     launches of the three."""
-    import numpy as np
-
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import run
     from repro_torch.models import init_params
-    from repro_torch.serving.engine import (EngineConfig, ServeRequest,
-                                            ServingEngine)
     arch = "granite-moe-1b-a400m"
     cfg = get_config(arch, smoke=False)
     total = 0
@@ -2308,7 +2478,24 @@ def zoo_serve(torch) -> int:
               wall_s=f"{wall:.1f}")
     gc.collect()
     torch.cuda.empty_cache()
+    cfg = get_config(arch, smoke=False, num_layers=GRANITE_CUT)
     params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    total += zoo_engine(torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def zoo_engine(torch, cfg, params) -> int:
+    """The serving engine over `params` at full width (8 slots, capacity
+    4096) with 12 ragged requests; the decode kernel's launches required
+    exactly, once a layer a step.  Returns them."""
+    import numpy as np
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.serving.engine import (EngineConfig, ServeRequest,
+                                            ServingEngine)
     eng = ServingEngine(cfg, params, EngineConfig(num_slots=8,
                                                   kv_capacity=4096))
     rng = np.random.default_rng(0)
@@ -2331,14 +2518,69 @@ def zoo_serve(torch) -> int:
     require(all(len(r.output) == r.max_new_tokens for r in reqs) and all(
         0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
         "engine output has the wrong length or ids out of the vocabulary")
-    phase("14/14 zoo.engine", config=f"{arch}/FULL/bf16", slots=8,
-          requests=len(reqs), decode_steps=eng.steps, new_tokens=new,
+    phase("14/14 zoo.engine", config=f"{cfg.name}/FULL/bf16",
+          layers=cfg.num_layers, slots=8, requests=len(reqs), decode_steps=eng.steps, new_tokens=new,
           tokens_per_s=f"{new / wall:.1f}", wall_s=f"{wall:.2f}",
           launches=n)
-    del params, eng
+    return n
+
+
+# deepseek-v2-lite-16b (MLA, 64 experts top 6 + 2 shared) at full width and
+# depth: (batch, prompt tokens, decode steps) of its generate run, and
+# (batch, tokens) of its eval step
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_GENERATE = (2, 2048, 31)
+DEEPSEEK_EVAL = (2, 512)
+
+
+def zoo_deepseek(torch) -> dict:
+    """deepseek-v2-lite-16b FULL in bf16 on one set of weights:
+    `greedy_generate` (flash once a layer, decode once a layer a step, on
+    MLA's padded-v route), the serving engine with ragged requests, and the
+    eval step with its moe_aux (its AdamW state does not fit one card).
+    Returns the kernels' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, loss_fn, make_eval_step
     gc.collect()
     torch.cuda.empty_cache()
-    return total + n
+    cfg = get_config(DEEPSEEK, smoke=False)
+    t = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n = zoo_generate(torch, DEEPSEEK, *DEEPSEEK_GENERATE, params=params)
+    n["decode_attention"] += zoo_engine(torch, cfg, params)
+    B, S = DEEPSEEK_EVAL
+    torch.cuda.reset_peak_memory_stats()
+    batch = zoo_batch(torch, cfg, B, S,
+                      torch.Generator(device="cuda").manual_seed(3), 0)
+    eval_step = make_eval_step(cfg)
+    eval_step(params, batch)                         # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = eval_step(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    with torch.no_grad():
+        loss, (ce, aux) = loss_fn(params, cfg, batch)
+    loss, ce, aux = float(loss), float(ce), float(aux)
+    require(all(math.isfinite(x) for x in (loss, ce, aux)) and aux > 0,
+            f"{DEEPSEEK}: eval {got}, loss {loss}, ce {ce}, moe_aux {aux}")
+    require(loss == float(got["loss"]) and ce == float(got["ce"]),
+            f"{DEEPSEEK}: loss_fn {loss}, {ce} against eval step {got}")
+    p = cfg.param_count()
+    # bf16 weights and gradients, fp32 m and v (the port's AdamW)
+    phase("14/14 zoo.train", config=f"{DEEPSEEK}/FULL/bf16",
+          via="make_eval_step", batch=B, seq=S, loss=loss, ce=ce,
+          moe_aux=aux, step_ms=f"{ms:.2f}", init_params_s=f"{init_s:.2f}",
+          params=p, active_params=cfg.active_param_count(),
+          adamw_state_gb=f"{12 * p / 1e9:.1f}",
+          train_step="not_run:adamw_state_past_80GB",
+          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
 
 
 def zoo_train(torch) -> None:
@@ -2435,7 +2677,7 @@ def phase_zoo(torch) -> dict:
     full width.  Returns the kernels' launches of the generate runs and of
     granite's serving."""
     import numpy as np
-    for arch, _, _, _ in ZOO2_GENERATE:
+    for arch in [g[0] for g in ZOO2_GENERATE] + [DEEPSEEK]:
         err = zoo_parity(torch, arch)
         phase("14/14 zoo.parity", config=f"{arch}/SMOKE/fp32", batch=2,
               prompt=21, decode_steps=20, greedy_steps=12,
@@ -2447,14 +2689,21 @@ def phase_zoo(torch) -> dict:
     phase("14/14 zoo.parity", config="granite-moe-1b-a400m/SMOKE/fp32",
           decode="ragged_pos", logits_max_abs_err=f"{err:.3e}", tol="1e-4",
           engine_tokens="equal")
+    err = parity(torch, DEEPSEEK, [np.array([0, 3, 10, 40])], steps=6,
+                 prompt=(2, 9), new=(2, 6))
+    phase("14/14 zoo.parity", config=f"{DEEPSEEK}/SMOKE/fp32",
+          decode="ragged_pos", logits_max_abs_err=f"{err:.3e}", tol="1e-4",
+          engine_tokens="equal")
     total = {"decode_attention": 0, "flash_attention": 0}
-    for arch, B, S, steps in ZOO2_GENERATE:
-        for k, n in zoo_generate(torch, arch, B, S, steps).items():
+    for arch, B, S, steps, layers in ZOO2_GENERATE:
+        for k, n in zoo_generate(torch, arch, B, S, steps, layers).items():
             total[k] += n
     gc.collect()
     torch.cuda.empty_cache()
     total["decode_attention"] += zoo_serve(torch)
     zoo_train(torch)
+    for k, n in zoo_deepseek(torch).items():
+        total[k] += n
     return total
 
 

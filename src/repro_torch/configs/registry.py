@@ -30,6 +30,7 @@ PORTED = {
     "pixtral-12b": "pixtral_12b",
     "seamless-m4t-medium": "seamless_m4t_medium",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 

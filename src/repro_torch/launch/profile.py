@@ -15,7 +15,12 @@ is not clamped, so a negative value shows that the profiled kernel rows
 overcount (overlapping kernels) or that the device time of the profiled
 steps exceeds that of the unprofiled ones.  `decode_attention_ms_per_step`
 is the device time of the decode-attention kernels (the split pass and,
-where it runs, the merge).  Prints one JSON object;
+where it runs, the merge).  For an MLA model, `mla_expand_ms_per_step` is
+the device time (CUDA events, apart from the steps) of what each layer's
+decode builds from the latent cache before the kernel: the keys and values
+of its `--fill` rows (`layers.mla_expand`) and v zero-padded to the q.k
+width, over every layer; `mla_expand_share` is its share of `step_ms`.
+Prints one JSON object;
 `--out` also writes it to a file.  Runs on the CUDA card only: a CPU run
 would say nothing about the device.
 """
@@ -27,10 +32,12 @@ import subprocess
 import time
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import init_cache, init_params, make_decode_step
+from repro_torch.models import layers as L
 
 
 def profile_decode(arch: str, *, smoke: bool, fill: int, batch: int = 8,
@@ -83,19 +90,47 @@ def profile_decode(arch: str, *, smoke: bool, fill: int, batch: int = 8,
         decode(params, cache, toks, fill - 1)
     end.record()
     end.synchronize()
+    step_ms = start.elapsed_time(end) / steps
+    expand = {}
+    if cfg.attn_kind == "mla":
+        expand_ms = _mla_expand_ms(params, cfg, cache[0], fill, steps)
+        expand = {"mla_expand_ms_per_step": expand_ms,
+                  "mla_expand_share": expand_ms / step_ms}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True)
     host_ms.sort()
-    step_ms = start.elapsed_time(end) / steps
     return {"arch": arch, "smoke": smoke, "batch": batch, "kv_cap": kv_cap,
             "fill": fill, "steps": steps, "card": smi.stdout.strip(),
             "step_ms": step_ms,
             "step_ms_host_median_profiled": host_ms[len(host_ms) // 2],
             "device_ms_per_step": device_ms,
             "idle_share": 1 - device_ms / step_ms,
-            "decode_attention_ms_per_step": attention_ms,
+            "decode_attention_ms_per_step": attention_ms, **expand,
             "top_kernels": kernels[:top]}
+
+
+@torch.no_grad()
+def _mla_expand_ms(params, cfg, cache: dict, fill: int, steps: int) -> float:
+    """Device ms a step of building every layer's keys and padded values
+    from the first `fill` rows of its latent cache, as the decode does."""
+    dq = cfg.head_dim + cfg.rope_head_dim
+
+    def build():
+        for r, blk in enumerate(params.blocks):
+            _, v = L.mla_expand(blk.attn, cache["ckv"][r][:, :fill],
+                                cache["kr"][r][:, :fill], cfg)
+            F.pad(v, (0, dq - v.shape[-1]))
+
+    build()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        build()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
 
 
 def main(argv: list[str] | None = None) -> None:

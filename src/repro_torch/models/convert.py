@@ -14,9 +14,10 @@ The input is the JAX tree with every leaf turned into a numpy array
 position) and `enc_blocks` over `enc_layers`; each is unstacked into
 per-layer tensors.  Weights keep JAX's (in, out) layout, so the port
 computes `x @ w` as `repro` does.  Every ported block carries across: the
-attention block (`norm1`, `attn`, `norm_cross` and `cross` with
-cross-attention, `norm2`, and `ffn`, dense or the MoE's `router`, `w_gate`,
-`w_up`, `w_down` and `shared`) and the mLSTM block (`norm1`, `mixer`).
+attention block (`norm1`, `attn` (GQA's, or MLA's `w_q`, `w_dkv`, `w_kr`,
+`w_uk`, `w_uv`, `w_o`), `norm_cross` and `cross` with cross-attention,
+`norm2`, and `ffn`, dense or the MoE's `router`, `w_gate`, `w_up`,
+`w_down` and `shared`) and the mLSTM block (`norm1`, `mixer`).
 
 `mlp_from_jax` carries the speed predictor's MLP, a list of {"w", "b"}.
 """

@@ -1,6 +1,7 @@
-"""Core model layers for the GQA models: RMSNorm, RoPE, GQA projections,
-cross-attention's projections, the train forward's attention, the GLU FFN
-with a SiLU, GELU or ReLU gate (prefill and decode attention are
+"""Core model layers: RMSNorm, RoPE, GQA projections, cross-attention's
+projections, MLA (multi-head latent attention: the latent, its expansion to
+keys and values, and its attention), the train forward's attention, the
+GLU FFN with a SiLU, GELU or ReLU gate (prefill and decode attention are
 `kernels.ops.flash_attention` and `kernels.ops.decode_attention`).
 
 Parameters live in small `nn.Module`s whose names mirror `repro`'s parameter
@@ -49,6 +50,24 @@ class CrossAttention(GQA):
     """An encoder-decoder block's cross-attention (`repro`'s `cross`, laid
     out as GQA's): queries from the decoder, keys and values from the
     encoder's output."""
+
+
+class MLA(nn.Module):
+    """DeepSeek-V2's multi-head latent attention, `repro`'s `mla_init`
+    layout: full-rank queries (q_lora_rank 0) of width dh + dr a head, the
+    down projection to the latent (r), the shared rotary key (dr), the up
+    projections of keys and values (dh a head) and the output."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+        d, H, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
+        r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+        self.w_q = param((d, H * (dh + dr)), cfg.dtype, device)
+        self.w_dkv = param((d, r), cfg.dtype, device)
+        self.w_kr = param((d, dr), cfg.dtype, device)
+        self.w_uk = param((r, H * dh), cfg.dtype, device)
+        self.w_uv = param((r, H * dh), cfg.dtype, device)
+        self.w_o = param((H * dh, d), cfg.dtype, device)
 
 
 class FFN(nn.Module):
@@ -114,6 +133,58 @@ def cross_project_kv(cross: CrossAttention, enc_out: torch.Tensor, cfg):
             (enc_out @ cross.w_v).reshape(shape))
 
 
+def mla_latent(attn: MLA, x: torch.Tensor, cfg, rope: tuple):
+    """What the MLA decode cache stores for x (B, S, d): the latent c_kv
+    (B, S, r) and the rotary key (B, S, 1, dr), rotated (`rope` is
+    `rope_table` at width dr) and cast back to the model type."""
+    B, S, _ = x.shape
+    c_kv = x @ attn.w_dkv
+    k_rope = (x @ attn.w_kr).reshape(B, S, 1, cfg.rope_head_dim)
+    return c_kv, apply_rope(k_rope, rope)
+
+
+def mla_expand(attn: MLA, c_kv: torch.Tensor, k_rope: torch.Tensor, cfg):
+    """Keys (B, Skv, H, dh + dr), [k_nope | k_rope] with the rotary key
+    broadcast over the heads after its cast, and values (B, Skv, H, dh),
+    each up-projected from the latent in the model type."""
+    B, Skv, _ = c_kv.shape
+    H, dh, dr = cfg.num_heads, cfg.head_dim, cfg.rope_head_dim
+    k_nope = (c_kv @ attn.w_uk).reshape(B, Skv, H, dh)
+    v = (c_kv @ attn.w_uv).reshape(B, Skv, H, dh)
+    k = torch.cat([k_nope, k_rope.expand(B, Skv, H, dr)], dim=-1)
+    return k, v
+
+
+def mla_attend(attn: MLA, x: torch.Tensor, c_kv: torch.Tensor,
+               k_rope: torch.Tensor, cfg, rope: tuple, attend=None, **kw):
+    """MLA attention of the queries of x (B, Sq, d) against the latents
+    (c_kv, k_rope) of Skv positions, through `attend(q, k, v, **kw)`
+    (`attention` by default; a kernel through `pad_v`), then the output
+    projection: (B, Sq, d).  Queries are [q_nope | q_rope], q_rope rotated
+    in fp32 and cast; the scale is (dh + dr)**-0.5, q's width, as in
+    `repro`."""
+    B, Sq, _ = x.shape
+    H, dh = cfg.num_heads, cfg.head_dim
+    q = (x @ attn.w_q).reshape(B, Sq, H, dh + cfg.rope_head_dim)
+    q = torch.cat([q[..., :dh], apply_rope(q[..., dh:], rope)], dim=-1)
+    k, v = mla_expand(attn, c_kv, k_rope, cfg)
+    o = (attend or attention)(q, k, v, **kw)
+    return o.reshape(B, Sq, H * dh) @ attn.w_o
+
+
+def pad_v(attend):
+    """`attend` (a kernel's entry point, which takes q, k and v of one
+    width) for values narrower than the queries: v is zero-padded to q's
+    width and the output cut back to v's.  The padded columns of the
+    output are zero and the rest unchanged, since the kernels scale by
+    q's width.  Pad v only: padding q or k would change that scale."""
+    def run(q, k, v, *args, **kw):
+        dv = v.shape[-1]
+        v = F.pad(v, (0, q.shape[-1] - dv))
+        return attend(q, k, v, *args, **kw)[..., :dv]
+    return run
+
+
 def repeat_kv(k: torch.Tensor, G: int) -> torch.Tensor:
     """(B,S,Hk,dh) -> (B,S,Hk*G,dh), each KV head repeated for its G query
     heads."""
@@ -125,9 +196,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """`repro`'s materialised GQA attention, under autograd (the train
     forward; `repro` ran no Pallas kernel there).  q: (B,Sq,H,dh); k, v:
     (B,Skv,Hk,dh).  Query row i sees keys j <= i (causal) and j > i - window.
-    Its rounding points: q scaled by dh**-0.5 in the model type, scores
+    Its rounding points: q scaled by dh**-0.5 (itself rounded to the model
+    type) in the model type, scores
     accumulated in fp32, the softmax in fp32, probs cast to v's type, P.V
-    accumulated in fp32 and cast to q's type.  Returns (B,Sq,H,dh)."""
+    accumulated in fp32 and cast to q's type.  v may be narrower than q and
+    k (MLA).  Returns (B,Sq,H,v's width)."""
     B, Sq, H, dh = q.shape
     Skv = k.shape[1]
     if (Sq * Skv > _MATERIALIZE_LIMIT and Sq > 1 and Sq % _CHUNK_Q == 0
@@ -137,8 +210,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "there (attention_chunked), which is not ported; see ROADMAP.md")
     G = H // k.shape[2]
     k, v = repeat_kv(k, G), repeat_kv(v, G)
-    scores = torch.einsum("bqhd,bkhd->bhqk", (q * dh ** -0.5).float(),
-                          k.float())
+    # the scale rounded to q's type first, as JAX's weak float is
+    scale = torch.tensor(dh ** -0.5, dtype=q.dtype)
+    scores = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), k.float())
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)

@@ -5,6 +5,9 @@ Five patterns are ported, each in every mode `repro` runs it in:
     a SiLU, GELU or ReLU FFN; with a patch frontend (pixtral-12b) the
     caller's patch embeddings go before the tokens;
   * GQA with the MoE FFN `(("attn", "moe"),)` (`moe.py`);
+  * either of those two with MLA (`attn_kind="mla"`, deepseek-v2-lite-16b)
+    in place of GQA: the cache holds the latent and the rotary key, and
+    keys and values are expanded from it at each step;
   * the encoder-decoder `(("attn_cross", "dense"),)`: a bidirectional
     encoder of dense blocks over the caller's source frame embeddings, and
     decoder blocks with cross-attention over its output;
@@ -19,8 +22,9 @@ the mLSTM and the MoE run no kernel.
 
 Blocks are an `nn.ModuleList` of per-layer modules, run by a Python loop; the
 cache keeps `repro`'s layout, a tuple over pattern positions of {"k", "v"}
-(attention; {"k", "v", "xk", "xv"} with cross-attention) or {"C", "n", "m",
-"conv"} (mLSTM) tensors with a leading `repeats` dimension.  A
+(attention; {"k", "v", "xk", "xv"} with cross-attention; {"ckv", "kr"}
+with MLA) or {"C", "n", "m", "conv"} (mLSTM) tensors with a leading
+`repeats` dimension.  A
 sliding-window model's cache holds min(window, capacity) rows; at `window`
 rows it is `repro`'s ring.
 
@@ -50,6 +54,7 @@ CROSS_PATTERN = (("attn_cross", "dense"),)
 ATTN_PATTERNS = (DENSE_PATTERN, MOE_PATTERN, CROSS_PATTERN)
 MLSTM_PATTERN = (("mlstm", "none"),)
 MOE_IMPLS = ("grouped", "dense")
+ATTN_KINDS = ("gqa", "mla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,8 +69,11 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     pattern: tuple = DENSE_PATTERN
+    attn_kind: str = "gqa"            # gqa | mla
     window: int | None = None         # sliding window (None = full)
     rope_theta: float = 10000.0
+    kv_lora_rank: int = 0             # mla: the latent's width r
+    rope_head_dim: int = 64           # mla: the rotary part's width dr
     ffn_act: str = "silu"
     # moe
     num_experts: int = 0
@@ -96,6 +104,18 @@ class ModelConfig:
                 f"(full or sliding-window attention) with an FFN gate in "
                 f"{tuple(L.ACTS)} and the mLSTM pattern {MLSTM_PATTERN} are "
                 "ported; see ROADMAP.md")
+        if self.attn_kind not in ATTN_KINDS:
+            raise NotImplementedError(
+                f"{self.name}: attn_kind={self.attn_kind!r}; the port runs "
+                f"{ATTN_KINDS}; see ROADMAP.md")
+        if self.attn_kind == "mla" and (
+                self.pattern not in (DENSE_PATTERN, MOE_PATTERN)
+                or self.window is not None or self.enc_layers):
+            raise NotImplementedError(
+                f"{self.name}: MLA is ported with the patterns "
+                f"{DENSE_PATTERN} and {MOE_PATTERN}, without a window, "
+                "cross-attention or an encoder (no config of `repro` has "
+                "them); see ROADMAP.md")
         if self.moe_impl not in MOE_IMPLS:
             raise NotImplementedError(
                 f"{self.name}: moe_impl={self.moe_impl!r}; the port runs "
@@ -117,11 +137,17 @@ class ModelConfig:
         d = self.d_model
         H, Hk, dh = self.num_heads, self.num_kv_heads, self.head_dim
         attn = d * dh * (H + 2 * Hk) + H * dh * d
+        if self.attn_kind == "mla":
+            r, dr = self.kv_lora_rank, self.rope_head_dim
+            self_attn = (d * H * (dh + dr) + d * (r + dr) + r * 2 * H * dh
+                         + H * dh * d)
+        else:
+            self_attn = attn
         block = 0
         for mixer, ffn in self.pattern:
             block += d                                   # norm1
             if mixer in ("attn", "attn_cross"):
-                block += attn
+                block += self_attn
             if mixer == "attn_cross":
                 block += attn + d                        # cross, norm_cross
             elif mixer == "mlstm":
@@ -159,7 +185,8 @@ class Block(nn.Module):
         super().__init__()
         mixer, ffn = desc
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = L.GQA(cfg, device)
+        self.attn = (L.MLA(cfg, device) if cfg.attn_kind == "mla"
+                     else L.GQA(cfg, device))
         if mixer == "attn_cross":
             self.norm_cross = L.RMSNorm(cfg.d_model, cfg.dtype, device)
             self.cross = L.CrossAttention(cfg, device)
@@ -239,7 +266,9 @@ def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
     Hk, head_dim) zeros in cfg.dtype, where cap is kv_capacity, or
     min(window, kv_capacity) for a sliding window (the ring's bound); an
     `attn_cross` block adds {"xk", "xv"} of src_len rows (the encoder's
-    keys and values, which prefill writes).  mLSTM: {"C", "n", "m"} in fp32
+    keys and values, which prefill writes).  MLA: {"ckv" (repeats, batch,
+    cap, kv_lora_rank), "kr" (repeats, batch, cap, 1, rope_head_dim)}, the
+    latent and the rotated key.  mLSTM: {"C", "n", "m"} in fp32
     (m at -60) and "conv" in cfg.dtype, the shapes of
     `ssm.mlstm_state_init`; kv_capacity does not apply."""
     dev = resolve_device(device)
@@ -253,10 +282,15 @@ def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
                  "conv": conv.expand(R, *conv.shape).clone()},)
     cap = (kv_capacity if cfg.window is None
            else min(cfg.window, kv_capacity))
-    def zeros(rows: int) -> torch.Tensor:
-        return torch.zeros((R, batch, rows, cfg.num_kv_heads, cfg.head_dim),
-                           dtype=cfg.dtype, device=dev)
+    def zeros(rows: int, *row) -> torch.Tensor:
+        row = row or (cfg.num_kv_heads, cfg.head_dim)
+        return torch.zeros((R, batch, rows, *row), dtype=cfg.dtype,
+                           device=dev)
 
+    if cfg.attn_kind == "mla":
+        return tuple({"ckv": zeros(cap, cfg.kv_lora_rank),
+                      "kr": zeros(cap, 1, cfg.rope_head_dim)}
+                     for _ in cfg.pattern)
     caches = []
     for mixer, _ in cfg.pattern:
         c = {"k": zeros(cap), "v": zeros(cap)}
@@ -339,8 +373,8 @@ def _forward_decode_attn(params: Transformer, cfg: ModelConfig, batch: dict,
     B = tokens.shape[0]
     H, dh = cfg.num_heads, cfg.head_dim
     c = cache[0]
-    kc_all, vc_all = c["k"], c["v"]
-    cap = kc_all.shape[2]
+    mla = cfg.attn_kind == "mla"
+    cap = c["ckv" if mla else "k"].shape[2]
     # `repro`'s ring: a sliding-window cache of exactly `window` rows, written
     # at slot pos % window.  Its valid slots are the first min(pos + 1, W)
     # (the softmax does not depend on their order), so the kernel reads them
@@ -369,20 +403,34 @@ def _forward_decode_attn(params: Transformer, cfg: ModelConfig, batch: dict,
     # no row past it is visible, and the kernel sizes its split from it
     live = int(host_lens.max())
     slot = pos_b % cap if ring else pos_b
-    rope = L.rope_table(pos_b[:, None], dh, cfg.rope_theta)
+    # MLA rotates its dr-wide part alone
+    rope = L.rope_table(pos_b[:, None], cfg.rope_head_dim if mla else dh,
+                        cfg.rope_theta)
     rows = torch.arange(B, device=dev)
+    mla_decode = L.pad_v(ops.decode_attention)
 
     x = _embed(params, cfg, tokens)
     for r, blk in enumerate(params.blocks):
         h = L.rmsnorm(blk.norm1, x)
-        q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
-        kc, vc = kc_all[r], vc_all[r]
-        kc[rows, slot] = k[:, 0]
-        vc[rows, slot] = v[:, 0]
-        # every Sq == 1 attention takes the decode kernel, MHA included
-        # (`repro` sent MHA down its dense path: the same function)
-        o = ops.decode_attention(q, kc[:, :live], vc[:, :live], lens)
-        x = x + o.reshape(B, 1, H * dh) @ blk.attn.w_o
+        if mla:
+            ckv, kr = L.mla_latent(blk.attn, h, cfg, rope)
+            c["ckv"][r][rows, slot] = ckv[:, 0]
+            c["kr"][r][rows, slot] = kr[:, 0]
+            # keys and values expanded from the `live` rows the kernel reads
+            # only: `repro` expanded the whole cache, whose rows past kv_len
+            # are masked, to the same result
+            x = x + L.mla_attend(blk.attn, h, c["ckv"][r][:, :live],
+                                 c["kr"][r][:, :live], cfg, rope,
+                                 attend=mla_decode, kv_len=lens)
+        else:
+            q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
+            kc, vc = c["k"][r], c["v"][r]
+            kc[rows, slot] = k[:, 0]
+            vc[rows, slot] = v[:, 0]
+            # every Sq == 1 attention takes the decode kernel, MHA included
+            # (`repro` sent MHA down its dense path: the same function)
+            o = ops.decode_attention(q, kc[:, :live], vc[:, :live], lens)
+            x = x + o.reshape(B, 1, H * dh) @ blk.attn.w_o
         if "xk" in c:
             # the encoder's keys and values, every source row visible
             h = L.rmsnorm(blk.norm_cross, x)
@@ -437,22 +485,35 @@ def _forward_attn(params: Transformer, cfg: ModelConfig, batch: dict,
     x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     H, dh, W = cfg.num_heads, cfg.head_dim, cfg.window
-    rope = L.rope_table(torch.arange(S, device=x.device)[None], dh,
-                        cfg.rope_theta)
-    leaves = {"k": [], "v": [], "xk": [], "xv": []}
+    mla = cfg.attn_kind == "mla"
+    # MLA rotates its dr-wide part alone
+    rope = L.rope_table(torch.arange(S, device=x.device)[None],
+                        cfg.rope_head_dim if mla else dh, cfg.rope_theta)
+    # the kernels take one width for q, k and v: MLA's v is padded
+    mla_fn = L.pad_v(attend) if prefill else attend
+    leaves = {"k": [], "v": [], "xk": [], "xv": [], "ckv": [], "kr": []}
     aux = torch.zeros((), device=x.device)
     for blk in params.blocks:
         h = L.rmsnorm(blk.norm1, x)
-        q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
-        o = attend(q, k, v, causal=True, window=W)
-        if prefill and W is not None and S > W:
-            # the last W rows, rolled so that position p sits at slot p % W
-            # (`repro`'s ring-aligned prefill cache)
-            k, v = (torch.roll(t[:, -W:], S % W, dims=1) for t in (k, v))
-        if prefill:
-            leaves["k"].append(k)
-            leaves["v"].append(v)
-        x = x + o.reshape(B, S, H * dh) @ blk.attn.w_o
+        if mla:
+            ckv, kr = L.mla_latent(blk.attn, h, cfg, rope)
+            x = x + L.mla_attend(blk.attn, h, ckv, kr, cfg, rope,
+                                 attend=mla_fn, causal=True)
+            if prefill:
+                leaves["ckv"].append(ckv)
+                leaves["kr"].append(kr)
+        else:
+            q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
+            o = attend(q, k, v, causal=True, window=W)
+            if prefill and W is not None and S > W:
+                # the last W rows, rolled so that position p sits at slot
+                # p % W (`repro`'s ring-aligned prefill cache)
+                k, v = (torch.roll(t[:, -W:], S % W, dims=1)
+                        for t in (k, v))
+            if prefill:
+                leaves["k"].append(k)
+                leaves["v"].append(v)
+            x = x + o.reshape(B, S, H * dh) @ blk.attn.w_o
         if enc is not None:
             h = L.rmsnorm(blk.norm_cross, x)
             q = L.cross_project_q(blk.cross, h, cfg)

@@ -64,13 +64,14 @@ def greedy_generate(cfg: ModelConfig, params, batch: dict,
 
 def _copy_prefix_cache(src: tuple, dst: tuple) -> tuple:
     """The prefill cache `src` in the decode cache `dst`: the attention
-    leaves (k, v and the cross keys and values xk, xv) written into dst's
-    first rows (in place), the mLSTM state taken whole."""
+    leaves (k, v, the cross keys and values xk, xv, and MLA's latent ckv
+    and rotary key kr) written into dst's first rows (in place), the mLSTM
+    state taken whole."""
     out = []
     for s, d in zip(src, dst):
         d = dict(d)
         for name, v in s.items():
-            if name in ("k", "v", "xk", "xv"):
+            if name in ("k", "v", "xk", "xv", "ckv", "kr"):
                 d[name][:, :, :v.shape[2]].copy_(v)
             else:
                 d[name] = v

@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device, synchronize
-from repro_torch.core.interference import WorkloadProfile
+from repro_torch.core.interference import (OFFLINE_MODEL_PROFILES,
+                                           WorkloadProfile)
 from repro_torch.kernels import ops
 
 # roofline-v1 device model: the paper's testbed GPU, an NVIDIA T4 (fp32
@@ -291,3 +292,56 @@ def catalog_by_role(catalog: dict[str, Workload] | None = None,
     ws = list(catalog.values())
     return ([w for w in ws if w.role == ROLE_ONLINE],
             [w for w in ws if w.role == ROLE_OFFLINE])
+
+
+# ---------------------------------------------------------------------------
+# Seed-era profiler API (`repro`'s, kept beside the catalog)
+# ---------------------------------------------------------------------------
+
+# profile_step_fn's default peaks: one NVIDIA H100 SXM's dense bf16 FLOP/s
+# and HBM bytes/s (NVIDIA's data sheet, at the 700 W power limit), the
+# figures chip_smoke.py's bounds use.  `repro` defaults to its TPU's.
+H100_PEAK_FLOPS = 989e12
+H100_PEAK_BW = 3.35e12
+
+
+@dataclasses.dataclass
+class ProfileStore:
+    """The paper stores measured profiles in a database keyed by workload."""
+    profiles: dict = dataclasses.field(default_factory=dict)
+
+    def get(self, key: str) -> WorkloadProfile | None:
+        return self.profiles.get(key)
+
+    def put(self, key: str, profile: WorkloadProfile) -> None:
+        self.profiles[key] = profile
+
+
+def profile_step_fn(step_fn: Callable[[], None], *, name: str,
+                    warmup: int = 2, iters: int = 5,
+                    flops_per_step: float = 0.0,
+                    bytes_per_step: float = 0.0,
+                    peak_flops: float = H100_PEAK_FLOPS,
+                    peak_bw: float = H100_PEAK_BW,
+                    mem_bytes: int = 0,
+                    device_bytes: int = DEVICE_BYTES) -> WorkloadProfile:
+    """Wall-clock profiling of an arbitrary step callable, which must return
+    after its work is done (on the card: synchronize inside it).  Prefer
+    the catalog's deterministic :meth:`Workload.profile` for anything that
+    feeds an artifact."""
+    for _ in range(warmup):
+        step_fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step_fn()
+    dt = (time.perf_counter() - t0) / iters
+    compute_frac = min(1.0, (flops_per_step / peak_flops) / max(dt, 1e-9))
+    bw_frac = min(1.0, (bytes_per_step / peak_bw) / max(dt, 1e-9))
+    return WorkloadProfile(
+        name=name, gpu_util=0.95, sm_activity=max(compute_frac, 0.05),
+        sm_occupancy=0.5, mem_bw=max(bw_frac, 0.05), exec_time_ms=dt * 1e3,
+        mem_bytes_frac=mem_bytes / device_bytes)
+
+
+def profile_from_trace(model: str) -> WorkloadProfile:
+    return OFFLINE_MODEL_PROFILES[model]

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # On the card the kernel is held against the plain version run in fp32 on
@@ -153,6 +154,12 @@ def test_kernel_refuses_cpu_tensors():
     (2, 1024, 16, 16, 64, 1024, 512),
     (8, 4096, 16, 8, 64, [1, 17, 512, 1000, 2048, 3000, 4095, 4096], 512),
     (8, 4096, 16, 8, 64, 4096, 512),
+    # deepseek-v2-lite-16b's MLA decode: q.k width 192 (v zero-padded to
+    # it), MHA, at B8 on a 4096-row cache, ragged and full; its SMOKE width
+    # 24 (16 + 8)
+    (8, 4096, 16, 16, 192, [1, 17, 512, 1000, 2048, 3000, 4095, 4096], 512),
+    (8, 4096, 16, 16, 192, 4096, 512),
+    (3, 40, 4, 4, 24, [1, 20, 40], 64),
 ])
 def test_kernel_vs_plain_on_card(dtype, B, Skv, H, Hk, d, kv_len, block_k):
     if not torch.cuda.is_available():
@@ -189,5 +196,31 @@ def test_kernel_one_split_and_many_on_card(dtype, B, Skv, Hk, many):
     out = da.decode_attention_cuda(q, k, v, lens)
     torch.cuda.synchronize()
     want = da.decode_attention_plain(q.float(), k.float(), v.float(), lens)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=CARD_RTOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Skv,H,dq,dv,kv_len", [
+    (8, 4096, 16, 192, 128, [1, 17, 512, 1000, 2048, 3000, 4095, 4096]),
+    (3, 40, 4, 24, 16, [1, 20, 40]),
+])
+def test_padded_v_route_on_card(dtype, B, Skv, H, dq, dv, kv_len):
+    """MLA's route through the kernel: v zero-padded to the q.k width, the
+    output cut back, held against the plain version on the unpadded
+    inputs (its scale is q's width too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, _ = make_inputs(B, Skv, H, H, dq, 4)
+    v = make_inputs(B, Skv, H, H, dv, 5)[2]
+    q, k, v = (t.cuda() for t in to_torch((q, k, v), dtype))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    before = da.launches
+    out = L.pad_v(ops.decode_attention)(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert da.launches == before + 1 and tuple(out.shape) == (B, 1, H, dv)
+    want = L.pad_v(da.decode_attention_plain)(q.float(), k.float(),
+                                              v.float(), lens)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
                                atol=2e-5, rtol=CARD_RTOL[dtype])

@@ -17,6 +17,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssm_scan as ss
+from repro_torch.models import layers as L
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # tests/test_kernels.py:12
 SSM_TOL = 1e-4                                 # tests/test_kernels.py:73
@@ -251,6 +252,10 @@ def test_kernels_refuse_cpu_tensors():
     (2, 512, 512, 16, 16, 64, True, None),
     (2, 2048, 2048, 16, 8, 64, True, None),
     (1, 2048, 2048, 32, 8, 128, True, None),
+    # deepseek-v2-lite-16b's MLA prefill: q.k width 192 (the 256 class; v
+    # zero-padded to it), MHA, B2 x 2048; its SMOKE width 24 (16 + 8)
+    (2, 2048, 2048, 16, 16, 192, True, None),
+    (2, 19, 19, 4, 4, 24, True, None),
 ])
 def test_flash_kernel_vs_plain_on_card(dtype, B, Sq, Skv, H, Hk, d, causal,
                                        window):
@@ -318,3 +323,26 @@ def test_ssm_kernel_vs_plain_on_card(B, S, di, N, chunk, a_log):
     want = ss.ssm_scan_plain(*arrays)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                atol=SSM_TOL, rtol=SSM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,dq,dv", [(2, 2048, 16, 192, 128),
+                                         (2, 19, 4, 24, 16)])
+def test_flash_padded_v_route_on_card(dtype, B, S, H, dq, dv):
+    """MLA's prefill route through the kernel: v zero-padded to the q.k
+    width, the output cut back, held against the plain version on the
+    unpadded inputs (its scale is q's width too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, _ = flash_inputs(B, S, S, H, H, dq, seed=4)
+    v = flash_inputs(B, S, S, H, H, dv, seed=5)[2]
+    q, k, v = (t.cuda() for t in to_torch((q, k, v), dtype))
+    before = fa.launches
+    out = L.pad_v(ops.flash_attention)(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and tuple(out.shape) == (B, S, H, dv)
+    want = L.pad_v(fa.flash_attention_plain)(q.float(), k.float(), v.float(),
+                                             causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=CARD_RTOL[dtype])
