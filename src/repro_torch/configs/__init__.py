@@ -1,1 +1,1 @@
-from .registry import ARCH_IDS, PORTED, get_config  # noqa: F401
+from .registry import ARCH_IDS, PORTED, all_configs, get_config  # noqa: F401

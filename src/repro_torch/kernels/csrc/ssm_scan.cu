@@ -2,6 +2,8 @@
 //   A = -exp(A_log);  h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t;
 //   y_t = sum_n h_t[n] * C_t[n]       (no D * x skip; the caller adds it)
 // dt, x, y: (B, S, di); B_t, C_t: (B, S, N); A_log: (di, N); all contiguous.
+// Optional state: h_{-1} from h0 and h_{S-1} into h_last, both (B, di, N);
+// a null pointer means a zero start and no state out.
 //
 // Replaces the Pallas TPU kernel `ssm_scan` in src/repro/kernels/ssm_scan.py
 // (body `_ssm_kernel`).
@@ -53,10 +55,14 @@
 // the kernel runs at the pace of one warp's issue schedule, not of the SFU;
 // L = 2 puts two warps on each sub-partition and is the fastest of L = 1,
 // 2, 4 at jamba's width.
+// The state in and out costs 2 * B * di * N * 4 bytes (2 MB at jamba's
+// width, against the 805 MB above): each thread loads its N / L states of
+// h0 where it would zero them and stores them once after the last tile,
+// no shuffle needed.
 // Rows past S and channels past di are zero-filled (dt 0 leaves h as it
-// is) and not stored.  dt * x is formed in fp32, as ref.ssm_scan_reference
-// does; the output is fp32 whatever the caller's input type (the wrapper
-// casts to fp32).
+// is) and not stored; a channel past di reads and writes no state.  dt * x
+// is formed in fp32, as ref.ssm_scan_reference does; the output is fp32
+// whatever the caller's input type (the wrapper casts to fp32).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -145,8 +151,10 @@ template <int N, int L>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
                 const float* __restrict__ bm, const float* __restrict__ cm,
-                const float* __restrict__ a_log, float* __restrict__ y, int S,
-                int di, int blocks_per_row, int vec, int bc_vec) {
+                const float* __restrict__ a_log,
+                const float* __restrict__ h0, float* __restrict__ y,
+                float* __restrict__ h_last, int S, int di, int blocks_per_row,
+                int vec, int bc_vec) {
   using St = Stage<N, L>;
   constexpr int C = St::kC, NS = N / L;
   extern __shared__ __align__(16) float smem[];
@@ -157,6 +165,8 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
   const int tid = threadIdx.x, ch = tid / L, lane = tid % L;
   const int c = c0 + ch, n0 = lane * NS;
   const int64_t row0 = static_cast<int64_t>(b) * S;
+  // this thread's states in h0 and h_last: (b, c, n0 .. n0 + NS - 1)
+  const int64_t st0 = (static_cast<int64_t>(b) * di + c) * N + n0;
 
   float a2[NS], h[NS];
 #pragma unroll
@@ -164,7 +174,7 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
     a2[j] = c < di ? -expf(a_log[static_cast<int64_t>(c) * N + n0 + j]) *
                          kLog2e
                    : 0.f;
-    h[j] = 0.f;
+    h[j] = h0 != nullptr && c < di ? h0[st0 + j] : 0.f;
   }
   // y: one pointer, advanced by di each step; lane 0 stores
   float* yp = y + row0 * di + min(c, di - 1);
@@ -268,6 +278,10 @@ ssm_scan_kernel(const float* __restrict__ dt, const float* __restrict__ x,
       yp += di;
     }
   }
+  if (h_last != nullptr && c < di) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) h_last[st0 + j] = h[j];
+  }
 }
 
 bool aligned16(const void* p) {
@@ -276,8 +290,8 @@ bool aligned16(const void* p) {
 
 template <int N, int L>
 int launch(const float* dt, const float* x, const float* bm, const float* cm,
-           const float* a_log, float* y, int B, int S, int di,
-           cudaStream_t stream) {
+           const float* a_log, const float* h0, float* y, float* h_last,
+           int B, int S, int di, cudaStream_t stream) {
   using St = Stage<N, L>;
   const int per_row = (di + St::kC - 1) / St::kC;
   if (static_cast<int64_t>(per_row) * B > INT_MAX)
@@ -291,24 +305,25 @@ int launch(const float* dt, const float* x, const float* bm, const float* cm,
   const int vec = di % 4 == 0 && aligned16(dt) && aligned16(x);
   const int bc_vec = aligned16(bm) && aligned16(cm);
   ssm_scan_kernel<N, L><<<per_row * B, kThreads, St::kRingBytes, stream>>>(
-      dt, x, bm, cm, a_log, y, S, di, per_row, vec, bc_vec);
+      dt, x, bm, cm, a_log, h0, y, h_last, S, di, per_row, vec, bc_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int N>
 int launch_lanes(int lanes, const float* dt, const float* x, const float* bm,
-                 const float* cm, const float* a_log, float* y, int B, int S,
-                 int di, cudaStream_t s) {
+                 const float* cm, const float* a_log, const float* h0,
+                 float* y, float* h_last, int B, int S, int di,
+                 cudaStream_t s) {
   switch (lanes) {
     case 1:
-      return launch<N, 1>(dt, x, bm, cm, a_log, y, B, S, di, s);
+      return launch<N, 1>(dt, x, bm, cm, a_log, h0, y, h_last, B, S, di, s);
     case 2:
       if constexpr (N >= 2)
-        return launch<N, 2>(dt, x, bm, cm, a_log, y, B, S, di, s);
+        return launch<N, 2>(dt, x, bm, cm, a_log, h0, y, h_last, B, S, di, s);
       break;
     case 4:
       if constexpr (N >= 4)
-        return launch<N, 4>(dt, x, bm, cm, a_log, y, B, S, di, s);
+        return launch<N, 4>(dt, x, bm, cm, a_log, h0, y, h_last, B, S, di, s);
       break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -317,32 +332,44 @@ int launch_lanes(int lanes, const float* dt, const float* x, const float* bm,
 }  // namespace
 
 // All pointers are contiguous fp32: dt, x, y (B, S, di); bm, cm (B, S, N);
-// a_log (di, N).  N is a power of two up to 32; lanes (threads a channel)
+// a_log (di, N); h0 and h_last (B, di, N), each may be null (zero state in,
+// no state out).  N is a power of two up to 32; lanes (threads a channel)
 // is 1, 2 or 4 and at most N.  Returns a cudaError_t: the arguments' check
 // or the launch's status.
 extern "C" int repro_ssm_scan(const void* dt, const void* x, const void* bm,
-                              const void* cm, const void* a_log, void* y,
-                              int B, int S, int di, int N, int lanes,
-                              void* stream) {
+                              const void* cm, const void* a_log,
+                              const void* h0, void* y, void* h_last, int B,
+                              int S, int di, int N, int lanes, void* stream) {
   if (B < 1 || S < 1 || di < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float *pdt = static_cast<const float*>(dt),
               *px = static_cast<const float*>(x),
               *pb = static_cast<const float*>(bm),
               *pc = static_cast<const float*>(cm),
-              *pa = static_cast<const float*>(a_log);
-  float* py = static_cast<float*>(y);
+              *pa = static_cast<const float*>(a_log),
+              *ph0 = static_cast<const float*>(h0);
+  float *py = static_cast<float*>(y), *phl = static_cast<float*>(h_last);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int L = lanes;
   switch (N) {
-    case 1: return launch_lanes<1>(L, pdt, px, pb, pc, pa, py, B, S, di, s);
-    case 2: return launch_lanes<2>(L, pdt, px, pb, pc, pa, py, B, S, di, s);
-    case 4: return launch_lanes<4>(L, pdt, px, pb, pc, pa, py, B, S, di, s);
-    case 8: return launch_lanes<8>(L, pdt, px, pb, pc, pa, py, B, S, di, s);
+    case 1:
+      return launch_lanes<1>(L, pdt, px, pb, pc, pa, ph0, py, phl, B, S,
+                             di, s);
+    case 2:
+      return launch_lanes<2>(L, pdt, px, pb, pc, pa, ph0, py, phl, B, S,
+                             di, s);
+    case 4:
+      return launch_lanes<4>(L, pdt, px, pb, pc, pa, ph0, py, phl, B, S,
+                             di, s);
+    case 8:
+      return launch_lanes<8>(L, pdt, px, pb, pc, pa, ph0, py, phl, B, S,
+                             di, s);
     case 16:
-      return launch_lanes<16>(L, pdt, px, pb, pc, pa, py, B, S, di, s);
+      return launch_lanes<16>(L, pdt, px, pb, pc, pa, ph0, py, phl, B, S,
+                              di, s);
     case 32:
-      return launch_lanes<32>(L, pdt, px, pb, pc, pa, py, B, S, di, s);
+      return launch_lanes<32>(L, pdt, px, pb, pc, pa, ph0, py, phl, B, S,
+                              di, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -43,8 +43,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssm_scan(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
-             C_ssm: torch.Tensor, A_log: torch.Tensor) -> torch.Tensor:
-    """dt, x: (B,S,di); B_ssm, C_ssm: (B,S,N); A_log: (di,N).  Returns fp32
-    y (B,S,di), without the D*x skip."""
+             C_ssm: torch.Tensor, A_log: torch.Tensor,
+             h0: torch.Tensor | None = None, return_state: bool = False):
+    """dt, x: (B,S,di); B_ssm, C_ssm: (B,S,N); A_log: (di,N); h0: (B,di,N)
+    initial state (zero if None).  Returns fp32 y (B,S,di), without the D*x
+    skip, or (y, h_last (B,di,N) fp32) with return_state."""
     fn = _route(x, "ssm_scan", _ssm.ssm_scan_cuda, _ssm.ssm_scan_plain)
-    return fn(dt, x, B_ssm, C_ssm, A_log)
+    return fn(dt, x, B_ssm, C_ssm, A_log, h0=h0, return_state=return_state)

@@ -51,19 +51,25 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def ssm_scan_reference(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
-                       C_ssm: torch.Tensor, A_log: torch.Tensor) -> torch.Tensor:
+                       C_ssm: torch.Tensor, A_log: torch.Tensor,
+                       h0: torch.Tensor | None = None,
+                       return_state: bool = False):
     """Sequential selective scan, one step at a time.  dt, x: (B,S,di);
-    B_ssm, C_ssm: (B,S,N); A_log: (di,N).  Returns fp32 y (B,S,di)."""
+    B_ssm, C_ssm: (B,S,N); A_log: (di,N); h0: (B,di,N), the state before
+    step 0 (zero if None).  Returns fp32 y (B,S,di), or (y, h_last (B,di,N)
+    fp32) with return_state.  Differentiable (a loop of torch ops)."""
     Bsz, S, di = x.shape
     N = B_ssm.shape[-1]
     A = -torch.exp(A_log.float())
     dtf = dt.float()
     bx = dtf * x.float()
     Bf, Cf = B_ssm.float(), C_ssm.float()
-    h = torch.zeros((Bsz, di, N), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((Bsz, di, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
     ys = []
     for t in range(S):
         dA = torch.exp(dtf[:, t, :, None] * A)                 # (B, di, N)
         h = dA * h + bx[:, t, :, None] * Bf[:, t, None, :]
         ys.append((h * Cf[:, t, None, :]).sum(-1))
-    return torch.stack(ys, dim=1)
+    y = torch.stack(ys, dim=1)
+    return (y, h) if return_state else y

@@ -12,9 +12,14 @@ checks); it serves CPU tensors and the tests, and is what the kernel is held
 against on the card.
 
 As in the TPU wrapper every input is cast to fp32 and the output is fp32
-(without the D*x skip).  Divergence from the TPU kernel's interface: the
+(without the D*x skip).  Divergences from the TPU kernel's interface: the
 `chunk` tiling argument is gone (tiling belongs to the kernel), so S need not
-be a multiple of it.  The kernel takes N a power of two up to 32.
+be a multiple of it; and the port's kernel is a superset of the Pallas one:
+it also takes an initial state `h0` (B, di, N) and, with `return_state`,
+returns the final state h_last (B, di, N) beside y.  The Pallas kernel
+starts every row from zero and keeps its state in VMEM scratch; `repro`'s
+Mamba prefill takes h_last from its jnp mixer instead, and the port's
+takes it from the kernel.  The kernel takes N a power of two up to 32.
 
 `launches` counts the kernel's launches (one per call of `ssm_scan_cuda`).
 """
@@ -74,7 +79,8 @@ def lane_plan(B: int, di: int, N: int, sms: int) -> LanePlan:
 
 
 def check_args(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
-               C_ssm: torch.Tensor, A_log: torch.Tensor) -> None:
+               C_ssm: torch.Tensor, A_log: torch.Tensor,
+               h0: torch.Tensor | None = None) -> None:
     """Raise on what the kernel does not take."""
     if x.dim() != 3 or dt.shape != x.shape:
         raise ValueError(f"dt and x must both be (B, S, di): "
@@ -92,31 +98,38 @@ def check_args(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
         raise ValueError(f"state dim N={N} must be one of {STATE_DIMS}")
     if min(Bsz, S, di) < 1:
         raise ValueError(f"empty input {tuple(x.shape)}")
-    for t in (dt, x, B_ssm, C_ssm, A_log):
-        if not t.is_floating_point():
+    if h0 is not None and tuple(h0.shape) != (Bsz, di, N):
+        raise ValueError(f"h0 must be (B, di, N) = ({Bsz}, {di}, {N}), got "
+                         f"{tuple(h0.shape)}")
+    for t in (dt, x, B_ssm, C_ssm, A_log, h0):
+        if t is not None and not t.is_floating_point():
             raise ValueError(f"float inputs needed, got {t.dtype}")
 
 
 def ssm_scan_plain(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
-                   C_ssm: torch.Tensor, A_log: torch.Tensor) -> torch.Tensor:
+                   C_ssm: torch.Tensor, A_log: torch.Tensor,
+                   h0: torch.Tensor | None = None,
+                   return_state: bool = False):
     """The kernel's function in plain PyTorch: the same checks, then
     `ref.ssm_scan_reference` (a loop over the sequence)."""
-    check_args(dt, x, B_ssm, C_ssm, A_log)
-    return ssm_scan_reference(dt, x, B_ssm, C_ssm, A_log)
+    check_args(dt, x, B_ssm, C_ssm, A_log, h0)
+    return ssm_scan_reference(dt, x, B_ssm, C_ssm, A_log, h0, return_state)
 
 
 def ssm_scan_cuda(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
-                  C_ssm: torch.Tensor, A_log: torch.Tensor, *,
-                  lanes: int | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel; returns fp32 y (B,S,di).  Inputs are cast to
-    contiguous fp32 (no copy when they already are).  `lanes` overrides
-    `lane_plan`'s L (for measurements).  Raises on anything the kernel does
-    not take, or if the launch fails."""
+                  C_ssm: torch.Tensor, A_log: torch.Tensor,
+                  h0: torch.Tensor | None = None, return_state: bool = False,
+                  *, lanes: int | None = None):
+    """Launch the CUDA kernel; returns fp32 y (B,S,di), or (y, h_last
+    (B,di,N) fp32) with return_state; h0 (B,di,N) is the state before step
+    0 (zero if None).  Inputs are cast to contiguous fp32 (no copy when they
+    already are).  `lanes` overrides `lane_plan`'s L (for measurements).
+    Raises on anything the kernel does not take, or if the launch fails."""
     global launches
-    check_args(dt, x, B_ssm, C_ssm, A_log)
+    check_args(dt, x, B_ssm, C_ssm, A_log, h0)
     dev = x.device
-    if dev.type != "cuda" or any(t.device != dev
-                                 for t in (dt, B_ssm, C_ssm, A_log)):
+    if dev.type != "cuda" or any(t is not None and t.device != dev
+                                 for t in (dt, B_ssm, C_ssm, A_log, h0)):
         raise ValueError("ssm_scan_cuda needs all tensors on one CUDA device")
     Bsz, S, di = x.shape
     N = B_ssm.shape[2]
@@ -128,18 +141,24 @@ def ssm_scan_cuda(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,
                          f"at most N={N}")
     dt, x, B_ssm, C_ssm, A_log = (t.float().contiguous()
                                   for t in (dt, x, B_ssm, C_ssm, A_log))
+    if h0 is not None:
+        h0 = h0.float().contiguous()
     y = torch.empty((Bsz, S, di), dtype=torch.float32, device=dev)
+    h_last = (torch.empty((Bsz, di, N), dtype=torch.float32, device=dev)
+              if return_state else None)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.repro_ssm_scan(dt.data_ptr(), x.data_ptr(), B_ssm.data_ptr(),
-                                 C_ssm.data_ptr(), A_log.data_ptr(),
-                                 y.data_ptr(), Bsz, S, di, N, lanes, stream)
+        err = lib.repro_ssm_scan(
+            dt.data_ptr(), x.data_ptr(), B_ssm.data_ptr(), C_ssm.data_ptr(),
+            A_log.data_ptr(), None if h0 is None else h0.data_ptr(),
+            y.data_ptr(), None if h_last is None else h_last.data_ptr(),
+            Bsz, S, di, N, lanes, stream)
     if err:
         raise RuntimeError("ssm_scan kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
     launches += 1
-    return y
+    return (y, h_last) if return_state else y
 
 
 def _library() -> ctypes.CDLL:
@@ -148,7 +167,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.repro_ssm_scan
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 6 + [I] * 5 + [P]
+        fn.argtypes = [P] * 8 + [I] * 5 + [P]
         fn.restype = I
         lib.repro_cuda_error_string.argtypes = [I]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p

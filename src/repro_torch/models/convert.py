@@ -6,18 +6,22 @@ The input is the JAX tree with every leaf turned into a numpy array
   params["embed"]                     -> model.embed
   params["lm_head"]                   -> model.lm_head
   params["final_norm"]["scale"]       -> model.final_norm.scale
-  params["blocks"][0][a][b][r]        -> model.blocks[r].a.b   (r < repeats)
+  params["blocks"][i][a][b][r]        -> model.blocks[r * P + i].a.b
   params["enc_blocks"][a][b][r]       -> model.enc_blocks[r].a.b (r < enc_layers)
   params["enc_final_norm"]["scale"]   -> model.enc_final_norm.scale
 
-`blocks[0]` is stacked over the leading `repeats` dimension (one pattern
-position) and `enc_blocks` over `enc_layers`; each is unstacked into
-per-layer tensors.  Weights keep JAX's (in, out) layout, so the port
-computes `x @ w` as `repro` does.  Every ported block carries across: the
-attention block (`norm1`, `attn` (GQA's, or MLA's `w_q`, `w_dkv`, `w_kr`,
-`w_uk`, `w_uv`, `w_o`), `norm_cross` and `cross` with cross-attention,
-`norm2`, and `ffn`, dense or the MoE's `router`, `w_gate`, `w_up`,
-`w_down` and `shared`) and the mLSTM block (`norm1`, `mixer`).
+`blocks[i]` holds pattern position i (of P) stacked over the leading
+`repeats` dimension, so its entry r is layer r * P + i, as `repro`'s layer
+scan runs them; `enc_blocks` is stacked over `enc_layers`.  Each is
+unstacked into per-layer tensors.  Weights keep JAX's (in, out) layout, so
+the port computes `x @ w` as `repro` does.  Every ported block carries
+across: the attention block (`norm1`, `attn` (GQA's, or MLA's `w_q`,
+`w_dkv`, `w_kr`, `w_uk`, `w_uv`, `w_o`), `norm_cross` and `cross` with
+cross-attention, `norm2`, and `ffn`, dense or the MoE's `router`,
+`w_gate`, `w_up`, `w_down` and `shared`), the Mamba block (`norm1`,
+`mixer`: `in_proj`, `conv_w`, `conv_b`, `x_proj`, `dt_proj`, `dt_bias`,
+`A_log`, `D`, `out_proj`; `norm2`, `ffn`) and the mLSTM block (`norm1`,
+`mixer`).
 
 `mlp_from_jax` carries the speed predictor's MLP, a list of {"w", "b"}.
 """
@@ -44,25 +48,28 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
     """The port's model holding `tree`'s weights, cast to cfg.dtype, on
     `device` (the CUDA card unless `device="cpu"` is passed)."""
     device = resolve_device(device)
-    if len(tree["blocks"]) != len(cfg.pattern):
-        raise ValueError("one stacked block tree per pattern position expected")
     flat = {"embed": tree["embed"], "lm_head": tree["lm_head"],
             "final_norm.scale": tree["final_norm"]["scale"]}
-    stacks = [("blocks", tree["blocks"][0], cfg.repeats)]
+    # (prefix, stacked tree, repeats, pattern length P, position i): entry
+    # r of the stack is layer r * P + i
+    P = len(cfg.pattern)
+    stacks = [("blocks", blocks, cfg.repeats, P, i)
+              for i, blocks in enumerate(tree["blocks"])]
     if cfg.enc_layers:
-        stacks.append(("enc_blocks", tree["enc_blocks"], cfg.enc_layers))
+        stacks.append(("enc_blocks", tree["enc_blocks"], cfg.enc_layers, 1,
+                       0))
         flat["enc_final_norm.scale"] = tree["enc_final_norm"]["scale"]
-    for prefix, blocks, n in stacks:
+    for prefix, blocks, n, P, i in stacks:
         for name, stacked in _flatten(blocks):
             if stacked.shape[0] != n:
                 raise ValueError(f"{prefix}.{name}: leading dim "
                                  f"{stacked.shape[0]} != {n}")
             for r in range(n):
-                flat[f"{prefix}.{r}.{name}"] = stacked[r]
+                flat[f"{prefix}.{r * P + i}.{name}"] = stacked[r]
     model = Transformer(cfg, device)
     # via fp32: numpy has no bf16, and the cast to each parameter's type
-    # (cfg.dtype, or fp32 for the mLSTM gates and the MoE router) is then
-    # exact
+    # (cfg.dtype, or fp32 for the mLSTM gates, Mamba's dt_bias, A_log and D
+    # and the MoE router) is then exact
     types = {k: p.dtype for k, p in model.state_dict().items()}
     state = {k: torch.from_numpy(np.array(v, np.float32)).to(types.get(k))
              for k, v in flat.items()}

@@ -241,13 +241,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.silu`'s own formula, x * (1 / (1 + exp(-x))), op by op in x's
-    type.  `F.silu` rounds once; in bf16 that moves values by an ulp, which
-    the mLSTM's normalisation, or an expert's down projection, then
-    amplifies past the bf16 limit."""
+    type, the gate of every SiLU FFN (dense, expert, shared) and the
+    mLSTM's and Mamba's.  `F.silu` rounds once; in bf16 that moves values
+    by an ulp, which the layers after amplify past the bf16 limit (jamba's
+    SMOKE model: half of a dense layer's outputs an ulp apart)."""
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-ACTS = {"silu": F.silu, "gelu": gelu, "relu": F.relu}
+ACTS = {"silu": silu, "gelu": gelu, "relu": F.relu}
 
 
 def ffn(params: FFN, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

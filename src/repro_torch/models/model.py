@@ -1,13 +1,19 @@
 """Model core for the port: config, init, caches and the forward pass.
 
-Five patterns are ported, each in every mode `repro` runs it in:
-  * dense GQA `(("attn", "dense"),)`, full or sliding-window attention, with
-    a SiLU, GELU or ReLU FFN; with a patch frontend (pixtral-12b) the
-    caller's patch embeddings go before the tokens;
-  * GQA with the MoE FFN `(("attn", "moe"),)` (`moe.py`);
-  * either of those two with MLA (`attn_kind="mla"`, deepseek-v2-lite-16b)
-    in place of GQA: the cache holds the latent and the rotary key, and
-    keys and values are expanded from it at each step;
+A model is a pattern of block descriptors `(mixer, ffn)` repeated
+`num_layers / len(pattern)` times; layer `r * P + i` (P the pattern's
+length) is position `i` of repeat `r`, as in `repro`.  Ported patterns,
+each in every mode `repro` runs it in:
+  * any pattern whose positions are each ("attn" | "mamba", "dense" |
+    "moe"): dense GQA `(("attn", "dense"),)`, full or sliding-window, with
+    a SiLU, GELU or ReLU FFN (with a patch frontend, pixtral-12b, the
+    caller's patch embeddings go before the tokens); GQA with the MoE FFN
+    `(("attn", "moe"),)` (`moe.py`); either of those two with MLA
+    (`attn_kind="mla"`, deepseek-v2-lite-16b) in place of GQA, the cache
+    holding the latent and the rotary key, from which keys and values are
+    expanded at each step; and jamba-1.5-large-398b's hybrid super-block,
+    8 positions of Mamba (`ssm.py`) or attention, each with a dense or MoE
+    FFN;
   * the encoder-decoder `(("attn_cross", "dense"),)`: a bidirectional
     encoder of dense blocks over the caller's source frame embeddings, and
     decoder blocks with cross-attention over its output;
@@ -15,18 +21,20 @@ Five patterns are ported, each in every mode `repro` runs it in:
 Modes: `train` (full-sequence logits, the offline train step), `prefill`
 (the prompt's pass: last-token logits and the decode cache) and `decode`
 (one token against the cache, the online-serving hot path).  Prefill
-attention (self, cross and the encoder's) is `kernels.ops.flash_attention`
-and decode attention (self and cross) `kernels.ops.decode_attention`; the
-train forward keeps `repro`'s materialised attention under autograd, and
-the mLSTM and the MoE run no kernel.
+attention (self, cross and the encoder's) is `kernels.ops.flash_attention`,
+decode attention (self and cross) `kernels.ops.decode_attention`, and the
+Mamba prefill's scan `kernels.ops.ssm_scan`, which returns the state the
+cache keeps; the train forward keeps `repro`'s materialised attention and
+the plain scan under autograd, and the mLSTM, the MoE and Mamba's
+one-token decode run no kernel (`repro` ran them in jnp).
 
 Blocks are an `nn.ModuleList` of per-layer modules, run by a Python loop; the
 cache keeps `repro`'s layout, a tuple over pattern positions of {"k", "v"}
 (attention; {"k", "v", "xk", "xv"} with cross-attention; {"ckv", "kr"}
-with MLA) or {"C", "n", "m", "conv"} (mLSTM) tensors with a leading
-`repeats` dimension.  A
-sliding-window model's cache holds min(window, capacity) rows; at `window`
-rows it is `repro`'s ring.
+with MLA), {"h", "conv"} (Mamba) or {"C", "n", "m", "conv"} (mLSTM)
+tensors with a leading `repeats` dimension.  A sliding-window model's
+cache holds min(window, capacity) rows; at `window` rows it is `repro`'s
+ring.
 
 `repro` wrapped the train forward's layer scan in `jax.checkpoint` (remat),
 which only trades recomputation for activation memory; the port keeps
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -46,13 +55,15 @@ from repro_torch.kernels.decode_attention import kv_lengths
 
 from . import layers as L
 from . import moe as M
-from . import ssm as S
+from . import ssm
 
 DENSE_PATTERN = (("attn", "dense"),)
 MOE_PATTERN = (("attn", "moe"),)
 CROSS_PATTERN = (("attn_cross", "dense"),)
-ATTN_PATTERNS = (DENSE_PATTERN, MOE_PATTERN, CROSS_PATTERN)
 MLSTM_PATTERN = (("mlstm", "none"),)
+# a position of the hybrid patterns (jamba's, and the one-position GQA ones)
+HYBRID_MIXERS = ("attn", "mamba")
+HYBRID_FFNS = ("dense", "moe")
 MOE_IMPLS = ("grouped", "dense")
 ATTN_KINDS = ("gqa", "mla")
 
@@ -84,9 +95,12 @@ class ModelConfig:
     moe_impl: str = "grouped"         # grouped (production) | dense (oracle)
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
-    # mlstm
+    # ssm / mlstm
+    ssm_d_inner: int = 0
+    ssm_state_dim: int = 16
     ssm_conv_dim: int = 4
-    ssm_chunk: int = 256
+    ssm_dt_rank: int = 0
+    ssm_chunk: int = 256              # data only: the port's scan is unchunked
     mlstm_proj_factor: int = 2
     # encoder (enc-dec archs)
     enc_layers: int = 0
@@ -97,13 +111,23 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
 
     def __post_init__(self):
-        attn = self.pattern in ATTN_PATTERNS and self.ffn_act in L.ACTS
-        if not (attn or self.pattern == MLSTM_PATTERN):
+        hybrid = bool(self.pattern) and all(
+            mixer in HYBRID_MIXERS and ffn in HYBRID_FFNS
+            for mixer, ffn in self.pattern)
+        gated = ((hybrid or self.pattern == CROSS_PATTERN)
+                 and self.ffn_act in L.ACTS)
+        if not (gated or self.pattern == MLSTM_PATTERN):
             raise NotImplementedError(
-                f"{self.name}: only the attention patterns {ATTN_PATTERNS} "
-                f"(full or sliding-window attention) with an FFN gate in "
-                f"{tuple(L.ACTS)} and the mLSTM pattern {MLSTM_PATTERN} are "
-                "ported; see ROADMAP.md")
+                f"{self.name}: pattern {self.pattern} is not ported: the port "
+                f"runs patterns whose positions are each (one of "
+                f"{HYBRID_MIXERS}, one of {HYBRID_FFNS}) and the cross "
+                f"pattern {CROSS_PATTERN}, with an FFN gate in "
+                f"{tuple(L.ACTS)}, and the mLSTM pattern {MLSTM_PATTERN}; "
+                "see ROADMAP.md")
+        if self.num_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: {self.num_layers} layers are not "
+                             f"a whole number of the {len(self.pattern)}-"
+                             "position pattern")
         if self.attn_kind not in ATTN_KINDS:
             raise NotImplementedError(
                 f"{self.name}: attn_kind={self.attn_kind!r}; the port runs "
@@ -150,6 +174,12 @@ class ModelConfig:
                 block += self_attn
             if mixer == "attn_cross":
                 block += attn + d                        # cross, norm_cross
+            elif mixer == "mamba":
+                di, N = self.ssm_d_inner, self.ssm_state_dim
+                dtr, dc = self.ssm_dt_rank, self.ssm_conv_dim
+                block += (d * 2 * di + dc * di + di * (dtr + 2 * N)
+                          + dtr * di + di * N + di + di * d
+                          + 2 * di)                      # conv_b, dt_bias
             elif mixer == "mlstm":
                 dp = self.mlstm_proj_factor * d
                 block += (d * 2 * dp + self.ssm_conv_dim * dp + 3 * dp * dp
@@ -176,50 +206,44 @@ class ModelConfig:
 
 
 class Block(nn.Module):
-    """An attention block of pattern position `desc`: pre-norm
-    self-attention; for `attn_cross`, a pre-norm cross-attention over the
-    encoder's output; then a pre-norm FFN, dense or the MoE."""
+    """A block of pattern position `desc`: a pre-norm mixer, self-attention
+    (`attn`), Mamba or the mLSTM (`mixer`); for `attn_cross`, a pre-norm
+    cross-attention over the encoder's output; then a pre-norm FFN, dense
+    or the MoE, or none (the mLSTM's up-projection is its FFN)."""
 
     def __init__(self, cfg: ModelConfig, device,
                  desc: tuple = DENSE_PATTERN[0]):
         super().__init__()
         mixer, ffn = desc
         self.norm1 = L.RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = (L.MLA(cfg, device) if cfg.attn_kind == "mla"
-                     else L.GQA(cfg, device))
+        if mixer == "mamba":
+            self.mixer = ssm.Mamba(cfg, device)
+        elif mixer == "mlstm":
+            self.mixer = ssm.MLSTM(cfg, device)
+        else:
+            self.attn = (L.MLA(cfg, device) if cfg.attn_kind == "mla"
+                         else L.GQA(cfg, device))
         if mixer == "attn_cross":
             self.norm_cross = L.RMSNorm(cfg.d_model, cfg.dtype, device)
             self.cross = L.CrossAttention(cfg, device)
-        self.norm2 = L.RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.ffn = (M.MoE(cfg, device) if ffn == "moe" else
-                    L.FFN(cfg.d_model, cfg.d_ff, cfg.dtype, device))
-
-
-class MLSTMBlock(nn.Module):
-    """An `("mlstm", "none")` block: pre-norm mLSTM, no FFN (the block's
-    up-projection is its FFN)."""
-
-    def __init__(self, cfg: ModelConfig, device):
-        super().__init__()
-        self.norm1 = L.RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.mixer = S.MLSTM(cfg, device)
+        if ffn != "none":
+            self.norm2 = L.RMSNorm(cfg.d_model, cfg.dtype, device)
+            self.ffn = (M.MoE(cfg, device) if ffn == "moe" else
+                        L.FFN(cfg.d_model, cfg.d_ff, cfg.dtype, device))
 
 
 class Transformer(nn.Module):
     """Parameters (uninitialised) on `device`; names follow `repro`'s tree,
-    with `blocks.<layer>` in place of the stacked `blocks[0]` and
-    `enc_blocks.<layer>` in place of the stacked `enc_blocks`."""
+    with `blocks.<r * P + i>` in place of the stacked `blocks[i]`'s entry r
+    and `enc_blocks.<layer>` in place of the stacked `enc_blocks`."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         d, V = cfg.d_model, cfg.padded_vocab
         self.embed = L.param((V, d), cfg.dtype, device)
-        if cfg.pattern == MLSTM_PATTERN:
-            self.blocks = nn.ModuleList(MLSTMBlock(cfg, device)
-                                        for _ in range(cfg.num_layers))
-        else:
-            self.blocks = nn.ModuleList(Block(cfg, device, cfg.pattern[0])
-                                        for _ in range(cfg.num_layers))
+        P = len(cfg.pattern)
+        self.blocks = nn.ModuleList(Block(cfg, device, cfg.pattern[l % P])
+                                    for l in range(cfg.num_layers))
         self.final_norm = L.RMSNorm(d, cfg.dtype, device)
         self.lm_head = L.param((d, V), cfg.dtype, device)
         if cfg.enc_layers:
@@ -228,35 +252,41 @@ class Transformer(nn.Module):
             self.enc_final_norm = L.RMSNorm(d, cfg.dtype, device)
 
 
-# constant initial values and fixed init scales of `repro`'s mlstm_init
-_CONST_INIT = {"conv_b": 0.0, "b_i": 0.0, "b_f": 3.0}   # open forget gates
-_INIT_STD = {"conv_w": 0.5, "w_i": 0.02, "w_f": 0.02}
-
-
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> Transformer:
     """Random weights on the generator's device, drawn as `repro` draws them:
     embedding N(0, 0.02), projections truncated normal (+-2 std) with
-    std 1/sqrt(fan_in) unless `repro` fixes the scale, norm scales 1, mLSTM
-    gate biases constant.  Drawn in fp32, stored in each parameter's type."""
+    std 1/sqrt(fan_in) unless `repro` fixes the scale, norm scales 1.  A
+    module with `init_rules(cfg)` (the mLSTM, Mamba) gives its own
+    constants (gate biases, A_log, D, dt_bias) and fixed scales, by leaf
+    within that module.  Drawn in fp32, stored in each parameter's type."""
     model = Transformer(cfg, generator.device)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf.endswith("scale"):
-                p.fill_(1.0)
-                continue
-            if leaf in _CONST_INIT:
-                p.fill_(_CONST_INIT[leaf])
-                continue
-            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-            if name == "embed":
-                w.normal_(0.0, 0.02, generator=generator)
-            else:
-                std = _INIT_STD.get(leaf, 1.0 / math.sqrt(p.shape[0]))
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-            p.copy_(w)
+        for mname, mod in model.named_modules():
+            rules = getattr(mod, "init_rules", None)
+            consts, stds = rules(cfg) if rules else ({}, {})
+            for leaf, p in mod.named_parameters(recurse=False):
+                if leaf.endswith("scale"):
+                    p.fill_(1.0)
+                elif leaf in consts:
+                    p.copy_(torch.as_tensor(consts[leaf]))
+                elif not mname and leaf == "embed":
+                    p.copy_(_draw(p.shape, p.device, generator, std=0.02))
+                else:
+                    p.copy_(_draw(p.shape, p.device, generator, stds.get(
+                        leaf, 1.0 / math.sqrt(p.shape[0])), truncated=True))
     return model
+
+
+def _draw(shape, device, generator, std: float, truncated: bool = False):
+    """fp32 N(0, std) draws, truncated at +-2 std if asked.  The caller
+    copies them into the parameter in one statement, so one parameter's
+    fp32 scratch at most is alive at a time (jamba's expert stacks are 12
+    GiB each)."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    if truncated:
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)
+    return w.normal_(0.0, std, generator=generator)
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
@@ -268,18 +298,13 @@ def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
     `attn_cross` block adds {"xk", "xv"} of src_len rows (the encoder's
     keys and values, which prefill writes).  MLA: {"ckv" (repeats, batch,
     cap, kv_lora_rank), "kr" (repeats, batch, cap, 1, rope_head_dim)}, the
-    latent and the rotated key.  mLSTM: {"C", "n", "m"} in fp32
-    (m at -60) and "conv" in cfg.dtype, the shapes of
-    `ssm.mlstm_state_init`; kv_capacity does not apply."""
+    latent and the rotated key.  Mamba: {"h" (repeats, batch, di, N) fp32,
+    "conv" (repeats, batch, dc-1, di) in cfg.dtype}, zeros, the shapes of
+    `ssm.mamba_state_init`.  mLSTM: {"C", "n", "m"} in fp32 (m at -60) and
+    "conv" in cfg.dtype, the shapes of `ssm.mlstm_state_init`.  kv_capacity
+    applies to attention alone."""
     dev = resolve_device(device)
     R = cfg.repeats
-    if cfg.pattern == MLSTM_PATTERN:
-        st = S.mlstm_state_init(batch, cfg, dev)
-        (C, n, m), conv = st["carry"], st["conv"]
-        return ({"C": C.expand(R, *C.shape).clone(),
-                 "n": n.expand(R, *n.shape).clone(),
-                 "m": m.expand(R, *m.shape).clone(),
-                 "conv": conv.expand(R, *conv.shape).clone()},)
     cap = (kv_capacity if cfg.window is None
            else min(cfg.window, kv_capacity))
     def zeros(rows: int, *row) -> torch.Tensor:
@@ -287,13 +312,21 @@ def init_cache(cfg: ModelConfig, batch: int, kv_capacity: int,
         return torch.zeros((R, batch, rows, *row), dtype=cfg.dtype,
                            device=dev)
 
-    if cfg.attn_kind == "mla":
-        return tuple({"ckv": zeros(cap, cfg.kv_lora_rank),
-                      "kr": zeros(cap, 1, cfg.rope_head_dim)}
-                     for _ in cfg.pattern)
+    def repeated(state: dict) -> dict:
+        return {k: v.expand(R, *v.shape).clone() for k, v in state.items()}
+
     caches = []
     for mixer, _ in cfg.pattern:
-        c = {"k": zeros(cap), "v": zeros(cap)}
+        if mixer == "mamba":
+            c = repeated(ssm.mamba_state_init(batch, cfg, dev))
+        elif mixer == "mlstm":
+            st = ssm.mlstm_state_init(batch, cfg, dev)
+            c = repeated(dict(zip("Cnm", st["carry"]), conv=st["conv"]))
+        elif cfg.attn_kind == "mla":
+            c = {"ckv": zeros(cap, cfg.kv_lora_rank),
+                 "kr": zeros(cap, 1, cfg.rope_head_dim)}
+        else:
+            c = {"k": zeros(cap), "v": zeros(cap)}
         if mixer == "attn_cross":
             c.update(xk=zeros(src_len), xv=zeros(src_len))
         caches.append(c)
@@ -335,7 +368,7 @@ def _ffn(blk: Block, cfg: ModelConfig, x: torch.Tensor):
 def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
             mode: str = "decode", cache: tuple | None = None, pos=None):
     """decode: batch={"tokens": (B, 1)}, cache, pos (int or (B,); the mLSTM
-    ignores it) -> (logits (B, Vpad), cache).
+    and a pattern of Mamba alone ignore it) -> (logits (B, Vpad), cache).
     prefill: batch={"tokens": (B, S)} (with "patch_embeds" (B, n_p, d) for
     a patch frontend, "src_embeds" (B, S_src, d) for an encoder) ->
     (logits of the last position (B, Vpad), a new cache of n_p + S rows (or
@@ -348,31 +381,28 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
     In decode the cache is updated in place: `repro` wrote a new cache
     functionally, which at full width would copy every layer's cache on
     every step.  The returned cache is the object passed in."""
-    mlstm = cfg.pattern == MLSTM_PATTERN
-    if mode == "train":
-        if mlstm:
-            return _forward_train_mlstm(params, cfg, batch)
-        return _forward_attn(params, cfg, batch, prefill=False)
-    if mode == "prefill":
-        if mlstm:
-            return _forward_prefill_mlstm(params, cfg, batch)
-        return _forward_attn(params, cfg, batch, prefill=True)
+    if mode in ("train", "prefill"):
+        return _forward_blocks(params, cfg, batch, prefill=mode == "prefill")
     if mode != "decode" or cache is None:
         raise NotImplementedError(
             f"mode={mode!r}: the port runs train, prefill, and decode "
             "against a cache; see ROADMAP.md")
-    if mlstm:
-        return _forward_decode_mlstm(params, cfg, batch, cache)
-    return _forward_decode_attn(params, cfg, batch, cache, pos)
+    return _forward_decode(params, cfg, batch, cache, pos)
 
 
-def _forward_decode_attn(params: Transformer, cfg: ModelConfig, batch: dict,
-                         cache: tuple, pos):
-    dev = params.embed.device
-    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    B = tokens.shape[0]
-    H, dh = cfg.num_heads, cfg.head_dim
-    c = cache[0]
+class _AttnStep(NamedTuple):
+    """What a decode step's attention layers share."""
+    slot: torch.Tensor          # (B,) the cache row each sequence writes
+    lens: torch.Tensor          # (B,) int32 rows each sequence's query reads
+    src_lens: torch.Tensor      # (B,) int32 rows of the cross cache
+    live: int                   # the longest lens: caches are cut to it
+    rope: tuple                 # rotary angles at each sequence's position
+    rows: torch.Tensor          # arange(B)
+
+
+def _attn_step(cfg: ModelConfig, c: dict, pos, B: int, dev) -> _AttnStep:
+    """Positions, lengths and rotary angles from `pos` and an attention
+    position's cache `c` (every attention position has the same rows)."""
     mla = cfg.attn_kind == "mla"
     cap = c["ckv" if mla else "k"].shape[2]
     # `repro`'s ring: a sliding-window cache of exactly `window` rows, written
@@ -399,45 +429,81 @@ def _forward_decode_attn(params: Transformer, cfg: ModelConfig, batch: dict,
                             torch.full((B,), src_len, dtype=torch.int32)]
                            ).to(dev)
     pos_b, lens, src_lens = pos_lens[0].long(), pos_lens[1], pos_lens[2]
+    # MLA rotates its dr-wide part alone
+    rope = L.rope_table(pos_b[:, None],
+                        cfg.rope_head_dim if mla else cfg.head_dim,
+                        cfg.rope_theta)
     # attention reads the caches cut to the longest live sequence (a view):
     # no row past it is visible, and the kernel sizes its split from it
-    live = int(host_lens.max())
-    slot = pos_b % cap if ring else pos_b
-    # MLA rotates its dr-wide part alone
-    rope = L.rope_table(pos_b[:, None], cfg.rope_head_dim if mla else dh,
-                        cfg.rope_theta)
-    rows = torch.arange(B, device=dev)
+    return _AttnStep(pos_b % cap if ring else pos_b, lens, src_lens,
+                     int(host_lens.max()), rope,
+                     torch.arange(B, device=dev))
+
+
+def _forward_decode(params: Transformer, cfg: ModelConfig, batch: dict,
+                    cache: tuple, pos):
+    """Decode: layer r * P + i reads and writes repeat r of cache[i]; a
+    recurrent layer's state (Mamba's h and conv window, the mLSTM's C, n,
+    m and conv window) is overwritten with the step's, an attention
+    layer's row at its slot."""
+    dev = params.embed.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    B = tokens.shape[0]
+    H, dh, P = cfg.num_heads, cfg.head_dim, len(cfg.pattern)
+    mla = cfg.attn_kind == "mla"
+    attn = [c for c, (mixer, _) in zip(cache, cfg.pattern)
+            if mixer.startswith("attn")]
+    at = _attn_step(cfg, attn[0], pos, B, dev) if attn else None
     mla_decode = L.pad_v(ops.decode_attention)
 
     x = _embed(params, cfg, tokens)
-    for r, blk in enumerate(params.blocks):
+    for l, blk in enumerate(params.blocks):
+        i, r = l % P, l // P
+        c = cache[i]
         h = L.rmsnorm(blk.norm1, x)
-        if mla:
-            ckv, kr = L.mla_latent(blk.attn, h, cfg, rope)
-            c["ckv"][r][rows, slot] = ckv[:, 0]
-            c["kr"][r][rows, slot] = kr[:, 0]
+        mixer, ffn = cfg.pattern[i]
+        if mixer == "mamba":
+            o, st = ssm.mamba_decode_step(blk.mixer, h, {
+                "h": c["h"][r], "conv": c["conv"][r]}, cfg)
+            for name, new in st.items():
+                c[name][r].copy_(new)
+            x = x + o
+        elif mixer == "mlstm":
+            o, st = ssm.mlstm_decode_step(blk.mixer, h, {
+                "carry": (c["C"][r], c["n"][r], c["m"][r]),
+                "conv": c["conv"][r]}, cfg)
+            for name, new in zip(("C", "n", "m", "conv"),
+                                 (*st["carry"], st["conv"])):
+                c[name][r].copy_(new)
+            x = x + o
+        elif mla:
+            ckv, kr = L.mla_latent(blk.attn, h, cfg, at.rope)
+            c["ckv"][r][at.rows, at.slot] = ckv[:, 0]
+            c["kr"][r][at.rows, at.slot] = kr[:, 0]
             # keys and values expanded from the `live` rows the kernel reads
             # only: `repro` expanded the whole cache, whose rows past kv_len
             # are masked, to the same result
-            x = x + L.mla_attend(blk.attn, h, c["ckv"][r][:, :live],
-                                 c["kr"][r][:, :live], cfg, rope,
-                                 attend=mla_decode, kv_len=lens)
+            x = x + L.mla_attend(blk.attn, h, c["ckv"][r][:, :at.live],
+                                 c["kr"][r][:, :at.live], cfg, at.rope,
+                                 attend=mla_decode, kv_len=at.lens)
         else:
-            q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
+            q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, at.rope)
             kc, vc = c["k"][r], c["v"][r]
-            kc[rows, slot] = k[:, 0]
-            vc[rows, slot] = v[:, 0]
+            kc[at.rows, at.slot] = k[:, 0]
+            vc[at.rows, at.slot] = v[:, 0]
             # every Sq == 1 attention takes the decode kernel, MHA included
             # (`repro` sent MHA down its dense path: the same function)
-            o = ops.decode_attention(q, kc[:, :live], vc[:, :live], lens)
+            o = ops.decode_attention(q, kc[:, :at.live], vc[:, :at.live],
+                                     at.lens)
             x = x + o.reshape(B, 1, H * dh) @ blk.attn.w_o
         if "xk" in c:
             # the encoder's keys and values, every source row visible
             h = L.rmsnorm(blk.norm_cross, x)
             q = L.cross_project_q(blk.cross, h, cfg)
-            o = ops.decode_attention(q, c["xk"][r], c["xv"][r], src_lens)
+            o = ops.decode_attention(q, c["xk"][r], c["xv"][r], at.src_lens)
             x = x + o.reshape(B, 1, H * dh) @ blk.cross.w_o
-        x, _ = _ffn(blk, cfg, x)
+        if ffn != "none":
+            x, _ = _ffn(blk, cfg, x)
     x = L.rmsnorm(params.final_norm, x)
     return x[:, 0] @ params.lm_head, cache
 
@@ -468,40 +534,64 @@ def _encoder_forward(params: Transformer, cfg: ModelConfig, batch: dict,
     return L.rmsnorm(params.enc_final_norm, x)
 
 
-def _forward_attn(params: Transformer, cfg: ModelConfig, batch: dict,
-                  prefill: bool):
-    """Train (`repro`'s materialised `layers.attention` under autograd) and
-    prefill (the port's flash kernel on the card, where `repro` ran its
-    materialised attention: F3's documented divergence, held at the
-    reference's tolerances) of the attention patterns.  q and k come out of
-    `apply_rope` and v out of a reshape, all contiguous, so the bf16
-    kernel's 16-byte row check holds at every head width the configs have
-    (d 120: 240-byte rows) and no copy is made.  Cross-attention sees every
-    source row (non-causal, Sq != Skv) and its keys and values have no
-    rotary embedding."""
+def _forward_blocks(params: Transformer, cfg: ModelConfig, batch: dict,
+                    prefill: bool):
+    """Train and prefill, every pattern.  Attention: train
+    runs `repro`'s materialised `layers.attention` under autograd, prefill
+    the port's flash kernel on the card, where `repro` ran its materialised
+    attention (F3's documented divergence, held at the reference's
+    tolerances).  q and k come out of `apply_rope` and v out of a reshape,
+    all contiguous, so the bf16 kernel's 16-byte row check holds at every
+    head width the configs have (d 120: 240-byte rows) and no copy is made.
+    Cross-attention sees every source row (non-causal, Sq != Skv) and its
+    keys and values have no rotary embedding.  Mamba: `ssm.mamba_mixer`
+    (the scan kernel on the card outside autograd); its prefill cache is
+    the scan's last state and the conv window, the last dc-1 rows of the
+    pre-conv input, projected again from those rows of the block's input
+    alone (each row's projection is its own), as `repro` takes them.  The
+    mLSTM: the chunked `ssm.mlstm_mixer`; its cache is the carry and the
+    conv window, taken as Mamba's."""
     attend = ops.flash_attention if prefill else L.attention
     enc = (_encoder_forward(params, cfg, batch, attend) if cfg.enc_layers
            else None)
     x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
-    H, dh, W = cfg.num_heads, cfg.head_dim, cfg.window
+    H, dh, W, P = cfg.num_heads, cfg.head_dim, cfg.window, len(cfg.pattern)
     mla = cfg.attn_kind == "mla"
     # MLA rotates its dr-wide part alone
     rope = L.rope_table(torch.arange(S, device=x.device)[None],
                         cfg.rope_head_dim if mla else dh, cfg.rope_theta)
     # the kernels take one width for q, k and v: MLA's v is padded
     mla_fn = L.pad_v(attend) if prefill else attend
-    leaves = {"k": [], "v": [], "xk": [], "xv": [], "ckv": [], "kr": []}
+    # the prefill cache: for each pattern position, its leaves by name, one
+    # tensor a repeat
+    leaves = [{} for _ in cfg.pattern]
     aux = torch.zeros((), device=x.device)
-    for blk in params.blocks:
+    tail = cfg.ssm_conv_dim - 1
+    for l, blk in enumerate(params.blocks):
+        i = l % P
+        mixer, ffn = cfg.pattern[i]
+        new = {}
         h = L.rmsnorm(blk.norm1, x)
-        if mla:
+        if mixer == "mamba":
+            o, h_last = ssm.mamba_mixer(blk.mixer, h, cfg)
+            if prefill:
+                di = cfg.ssm_d_inner
+                new = {"h": h_last,
+                       "conv": h[:, -tail:] @ blk.mixer.in_proj[:, :di]}
+            x = x + o
+        elif mixer == "mlstm":
+            o, carry = ssm.mlstm_mixer(blk.mixer, h, cfg)
+            if prefill:
+                dp = cfg.mlstm_proj_factor * cfg.d_model
+                new = dict(zip("Cnm", carry),
+                           conv=h[:, -tail:] @ blk.mixer.up_proj[:, :dp])
+            x = x + o
+        elif mla:
             ckv, kr = L.mla_latent(blk.attn, h, cfg, rope)
             x = x + L.mla_attend(blk.attn, h, ckv, kr, cfg, rope,
                                  attend=mla_fn, causal=True)
-            if prefill:
-                leaves["ckv"].append(ckv)
-                leaves["kr"].append(kr)
+            new = {"ckv": ckv, "kr": kr}
         else:
             q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
             o = attend(q, k, v, causal=True, window=W)
@@ -510,77 +600,29 @@ def _forward_attn(params: Transformer, cfg: ModelConfig, batch: dict,
                 # p % W (`repro`'s ring-aligned prefill cache)
                 k, v = (torch.roll(t[:, -W:], S % W, dims=1)
                         for t in (k, v))
-            if prefill:
-                leaves["k"].append(k)
-                leaves["v"].append(v)
+            new = {"k": k, "v": v}
             x = x + o.reshape(B, S, H * dh) @ blk.attn.w_o
         if enc is not None:
             h = L.rmsnorm(blk.norm_cross, x)
             q = L.cross_project_q(blk.cross, h, cfg)
             xk, xv = L.cross_project_kv(blk.cross, enc, cfg)
             o = attend(q, xk, xv, causal=False)
-            if prefill:
-                leaves["xk"].append(xk)
-                leaves["xv"].append(xv)
+            new.update(xk=xk, xv=xv)
             x = x + o.reshape(B, S, H * dh) @ blk.cross.w_o
-        x, a = _ffn(blk, cfg, x)
-        aux = aux + a
+        if prefill:
+            for name, t in new.items():
+                leaves[i].setdefault(name, []).append(t)
+        if ffn != "none":
+            x, a = _ffn(blk, cfg, x)
+            aux = aux + a
     if not prefill:
         x = L.rmsnorm(params.final_norm, x)
         return x @ params.lm_head, aux
-    cache = ({name: torch.stack(t) for name, t in leaves.items() if t},)
+    cache = tuple({name: torch.stack(ts) for name, ts in named.items()}
+                  for named in leaves)
     return _last_logits(params, x), cache, aux
-
-
-def _forward_train_mlstm(params: Transformer, cfg: ModelConfig, batch: dict):
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
-    x = _embed(params, cfg, tokens)
-    for blk in params.blocks:
-        h = L.rmsnorm(blk.norm1, x)
-        o, _ = S.mlstm_mixer(blk.mixer, h, cfg)
-        x = x + o
-    x = L.rmsnorm(params.final_norm, x)
-    return x @ params.lm_head, torch.zeros((), device=x.device)
-
-
-def _forward_decode_mlstm(params: Transformer, cfg: ModelConfig, batch: dict,
-                          cache: tuple):
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
-    c = cache[0]
-    x = _embed(params, cfg, tokens)
-    for r, blk in enumerate(params.blocks):
-        h = L.rmsnorm(blk.norm1, x)
-        st = {"carry": (c["C"][r], c["n"][r], c["m"][r]), "conv": c["conv"][r]}
-        o, st = S.mlstm_decode_step(blk.mixer, h, st, cfg)
-        for name, new in zip(("C", "n", "m", "conv"), (*st["carry"],
-                                                         st["conv"])):
-            c[name][r].copy_(new)
-        x = x + o
-    x = L.rmsnorm(params.final_norm, x)
-    return x[:, 0] @ params.lm_head, cache
 
 
 def _last_logits(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """lm_head on the last position only (the norm is per position)."""
     return (L.rmsnorm(params.final_norm, x[:, -1:]) @ params.lm_head)[:, 0]
-
-
-def _forward_prefill_mlstm(params: Transformer, cfg: ModelConfig,
-                           batch: dict):
-    """The carry comes out of the chunked mixer; the conv window is the last
-    dc-1 rows of the pre-conv input, projected again from those rows of the
-    block's input alone (each row's projection is its own)."""
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
-    dp = cfg.mlstm_proj_factor * cfg.d_model
-    tail = cfg.ssm_conv_dim - 1
-    leaves = {"C": [], "n": [], "m": [], "conv": []}
-    x = _embed(params, cfg, tokens)
-    for blk in params.blocks:
-        h = L.rmsnorm(blk.norm1, x)
-        o, carry = S.mlstm_mixer(blk.mixer, h, cfg)
-        conv = h[:, -tail:] @ blk.mixer.up_proj[:, :dp]
-        for name, t in zip(leaves, (*carry, conv)):
-            leaves[name].append(t)
-        x = x + o
-    cache = ({k: torch.stack(v) for k, v in leaves.items()},)
-    return _last_logits(params, x), cache, torch.zeros((), device=x.device)

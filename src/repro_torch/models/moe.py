@@ -60,19 +60,6 @@ def router_probs(moe: MoE, x: torch.Tensor, cfg):
     return weights, idx, aux
 
 
-def _act(name: str):
-    """The experts' gate: SiLU op by op as `jax.nn.silu` computes it
-    (`layers.silu`), so that a bf16 expert output stays within the bf16
-    limit of `repro`'s elementwise; the other gates as the dense FFN's."""
-    return L.silu if name == "silu" else L.ACTS[name]
-
-
-def _shared(moe: MoE, x: torch.Tensor, act: str) -> torch.Tensor:
-    """The shared experts: one GLU FFN of width f * num_shared_experts."""
-    sh = moe.shared
-    return (_act(act)(x @ sh.w_gate) * (x @ sh.w_up)) @ sh.w_down
-
-
 def moe_dense_dispatch(moe: MoE, x: torch.Tensor, cfg):
     """The oracle: all E experts on all tokens, combined by the routing
     weights.  Returns (y (B,S,d) in x.dtype, aux)."""
@@ -80,7 +67,7 @@ def moe_dense_dispatch(moe: MoE, x: torch.Tensor, cfg):
     E, T = cfg.num_experts, B * S
     weights, idx, aux = router_probs(moe, x, cfg)
     xe = x.reshape(T, 1, d).expand(T, E, d)
-    g = _act(cfg.ffn_act)(torch.einsum("ted,edf->tef", xe, moe.w_gate))
+    g = L.ACTS[cfg.ffn_act](torch.einsum("ted,edf->tef", xe, moe.w_gate))
     u = torch.einsum("ted,edf->tef", xe, moe.w_up)
     ye = torch.einsum("tef,efd->ted", g * u, moe.w_down)         # (T,E,d)
     rows = torch.arange(T, device=x.device)[:, None].expand(T, cfg.top_k)
@@ -89,7 +76,7 @@ def moe_dense_dispatch(moe: MoE, x: torch.Tensor, cfg):
         accumulate=True)
     y = torch.einsum("ted,te->td", ye, comb).reshape(B, S, d)
     if hasattr(moe, "shared"):
-        y = y + _shared(moe, x, cfg.ffn_act)
+        y = y + L.ffn(moe.shared, x, cfg.ffn_act)
     return y, aux
 
 
@@ -142,14 +129,14 @@ def moe_grouped_dispatch(moe: MoE, x: torch.Tensor, cfg,
     buf = torch.zeros((B, E, cap, d), dtype=x.dtype,
                       device=x.device).index_put((rows, e_ids, safe), vals,
                                                  accumulate=True)
-    g = _act(cfg.ffn_act)(torch.einsum("becd,edf->becf", buf, moe.w_gate))
+    g = L.ACTS[cfg.ffn_act](torch.einsum("becd,edf->becf", buf, moe.w_gate))
     u = torch.einsum("becd,edf->becf", buf, moe.w_up)
     yb = torch.einsum("becf,efd->becd", g * u, moe.w_down)       # (B,E,cap,d)
     got = torch.where(keep[..., None], yb[rows, e_ids, safe], 0)
     y = torch.einsum("bskd,bsk->bsd", got.reshape(B, S, K, d),
                      weights.to(x.dtype))
     if hasattr(moe, "shared"):
-        y = y + _shared(moe, x, cfg.ffn_act)
+        y = y + L.ffn(moe.shared, x, cfg.ffn_act)
     return y.to(x.dtype), aux
 
 

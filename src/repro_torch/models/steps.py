@@ -65,8 +65,9 @@ def greedy_generate(cfg: ModelConfig, params, batch: dict,
 def _copy_prefix_cache(src: tuple, dst: tuple) -> tuple:
     """The prefill cache `src` in the decode cache `dst`: the attention
     leaves (k, v, the cross keys and values xk, xv, and MLA's latent ckv
-    and rotary key kr) written into dst's first rows (in place), the mLSTM
-    state taken whole."""
+    and rotary key kr) written into dst's first rows (in place), a
+    recurrent state (the mLSTM's C, n, m and conv, Mamba's h and conv)
+    taken whole."""
     out = []
     for s, d in zip(src, dst):
         d = dict(d)

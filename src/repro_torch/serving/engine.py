@@ -16,16 +16,19 @@ the decode step, and the greedy argmax is taken on the device, so each step
 copies B token ids to the host instead of the (B, Vpad) logits.  Greedy
 results are the same.
 
-Plain decoder LMs are served (the dense and MoE attention patterns and the
-mLSTM); a model with a frontend or an encoder is refused, as `repro`'s
-engine refuses it.  MoE decode routes each slot's token alone (one
-dispatch group a row, capacity 1), so ragged slots do not disturb each
-other.  A reused slot is not reset, as in `repro`: an attention slot's stale KV rows are never read (attention reads the
-first pos + 1 rows), but the mLSTM state (C, n, m and the conv window) is
-not masked, so a request admitted into a freed slot starts from the state
-its predecessor left.  Its tokens then differ from `greedy_generate`'s on
-the same prompt (ROADMAP.md, F5).  The port keeps this to stay equal to
-the reference.
+Plain decoder LMs are served (the dense, MoE and MLA attention patterns,
+jamba's hybrid of Mamba and attention, and the mLSTM); a model with a
+frontend or an encoder is refused, as `repro`'s engine refuses it.  MoE
+decode routes each slot's token alone (one dispatch group a row, capacity
+1), so ragged slots do not disturb each other.  A reused slot is not
+reset, as in `repro`: an attention slot's stale KV rows are never read
+(attention reads the first pos + 1 rows), but a recurrent state is not
+masked: the mLSTM's C, n, m and conv window, and Mamba's h and conv
+window.  A request admitted into a freed slot starts from the state its
+predecessor left, and an idle slot's state keeps evolving under the
+fixed-shape step (its last token fed again).  Its tokens then differ from
+`greedy_generate`'s on the same prompt (ROADMAP.md, F5).  The port keeps
+this to stay equal to the reference.
 """
 from __future__ import annotations
 

@@ -118,12 +118,14 @@ def test_only_decode_is_ported(setup):
                 mode="train_hidden")
 
 
-# ReLU (seamless-m4t-medium) and the MoE pattern (granite-moe-1b-a400m)
-# are ported now: a jamba-style super-block and the all-to-all MoE dispatch
+# ReLU (seamless-m4t-medium), the MoE pattern (granite-moe-1b-a400m) and
+# jamba's Mamba and hybrid super-blocks are ported now: MLA beside Mamba,
+# an mLSTM position mixed with attention and the all-to-all MoE dispatch
 # take their places
-@pytest.mark.parametrize("change", [{"pattern": (("mamba", "dense"),)},
-                                    {"pattern": (("attn", "moe"),
-                                                 ("mamba", "moe"))},
+@pytest.mark.parametrize("change", [{"pattern": (("mamba", "dense"),),
+                                     "attn_kind": "mla"},
+                                    {"pattern": (("attn", "dense"),
+                                                 ("mlstm", "none"))},
                                     {"pattern": (("attn", "moe"),),
                                      "moe_impl": "a2a"}])
 def test_unported_model_variants_raise(change):

@@ -76,7 +76,8 @@ def test_every_module_imports_without_jax_or_repro():
         "       'models.moe', 'configs.pixtral_12b',\n"
         "       'configs.seamless_m4t_medium',\n"
         "       'configs.granite_moe_1b_a400m',\n"
-        "       'configs.deepseek_v2_lite_16b')}\n"
+        "       'configs.deepseek_v2_lite_16b',\n"
+        "       'configs.jamba_1_5_large_398b')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
@@ -201,9 +202,14 @@ def test_entry_points_refuse_cpu_without_asking(tmp_path, monkeypatch):
 
 
 def test_unported_architectures_raise():
-    from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("jamba-1.5-large-398b", smoke=True)
+    """All ten of `repro`'s architectures are ported: every id resolves, at
+    SMOKE and FULL, to a config of its own name; an unknown id still
+    raises."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        for smoke in (True, False):
+            assert get_config(arch, smoke=smoke).name == arch
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-arch")
 

@@ -1,14 +1,17 @@
 """What of the selective-scan kernel's design can be checked without a card:
 its lane plan over every state width and size, its arithmetic emulated in
-fp32 against the reference over a long sequence, and the SASS reader that
-counts its hot loop's instructions."""
+fp32 against the reference over a long sequence, the SASS reader that
+counts its hot loop's instructions, and the initial and final state (`h0`,
+`return_state`) of its plain version, against the Pallas kernel and
+`repro`'s Mamba mixer; with a card (`-m cuda`), the kernel's state path
+against the plain version."""
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sass_mix
 from repro_torch.kernels import ssm_scan as ss
 
@@ -160,3 +163,154 @@ def test_sass_mix_counts_the_innermost_loop_with_exponentials():
     assert [st for _, _, _, st in insns[2:10]] == [2, 5, 2, 1, 1, 2, 5, 5]
     assert mix["stall_clocks"] == 23
     assert sass_mix.hot_loop(insns[:3]) is None
+
+
+# ------------------------------------------------ the state in and out (h0)
+
+def _state(B, di, N, seed):
+    return np.random.default_rng(seed).standard_normal((B, di, N)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("B,S,di,N,chunk,a_log", [
+    (1, 64, 128, 16, 16, "shared"),
+    (2, 96, 64, 8, 32, "per_channel"),
+    (2, 48, 40, 4, 16, "per_channel"),
+])
+def test_plain_scan_at_zero_state_matches_the_pallas_kernel(B, S, di, N, chunk,
+                                                            a_log):
+    """h0 = 0 and return_state: y is the Pallas kernel's in interpret mode
+    (which takes dt * x premultiplied and S a multiple of its chunk) within
+    1e-4; h0=None is the same scan."""
+    import jax.numpy as jnp
+
+    from repro.kernels.ssm_scan import ssm_scan as pallas_scan
+    from test_torch_prefill_kernels import ssm_inputs, to_torch
+    arrays = ssm_inputs(B, S, di, N, seed=S + di, a_log=a_log)
+    want = np.asarray(pallas_scan(*map(jnp.asarray, arrays), chunk=chunk,
+                                  interpret=True))
+    args = to_torch(arrays)
+    y, h_last = ss.ssm_scan_plain(*args, h0=torch.zeros(B, di, N),
+                                  return_state=True)
+    assert tuple(h_last.shape) == (B, di, N) and h_last.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), want, atol=SSM_TOL, rtol=SSM_TOL)
+    assert torch.equal(y, ss.ssm_scan_plain(*args))
+
+
+def test_h_last_matches_repros_mamba_mixer():
+    """The final state of `repro`'s chunked `mamba_mixer` (jamba SMOKE in
+    fp32, S 24 in chunks of 8, from a random h0) against the plain scan on
+    the mixer's own dt, x_conv, B and C, from the same h0: within 1e-4."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models import ssm as JS
+    cfg = dataclasses.replace(jax_get_config("jamba-1.5-large-398b",
+                                             smoke=True), dtype=jnp.float32)
+    p = JS.mamba_init(jax.random.PRNGKey(3), cfg, jnp.float32)
+    x = jnp.asarray(np.random.default_rng(4).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32))
+    h0 = _state(2, cfg.ssm_d_inner, cfg.ssm_state_dim, 5)
+    _, want = JS.mamba_mixer(p, x, cfg, h0=jnp.asarray(h0))
+    dt, B_ssm, C_ssm, _, x_conv = JS._mamba_inputs(p, x, cfg)
+    args = [torch.from_numpy(np.asarray(a)) for a in
+            (dt, x_conv, B_ssm, C_ssm, p["A_log"])]
+    _, h_last = ops.ssm_scan(*args, h0=torch.from_numpy(h0),
+                             return_state=True)
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(want),
+                               atol=SSM_TOL, rtol=SSM_TOL)
+
+
+@pytest.mark.parametrize("S", [2, 37, 64])
+def test_a_scan_splits_at_its_state(S):
+    """A scan over S steps from h0 is two scans over its halves, the second
+    from the first's h_last: y and h_last the same to the bit (the plain
+    loop does the same operations in the same order)."""
+    from test_torch_prefill_kernels import ssm_inputs, to_torch
+    dt, x, Bc, Cc, A_log = to_torch(ssm_inputs(2, S, 24, 8, seed=S,
+                                               a_log="per_channel"))
+    h0 = torch.from_numpy(_state(2, 24, 8, S))
+    y, h = ops.ssm_scan(dt, x, Bc, Cc, A_log, h0=h0, return_state=True)
+    m = S // 2
+    y1, h1 = ops.ssm_scan(dt[:, :m], x[:, :m], Bc[:, :m], Cc[:, :m], A_log,
+                          h0=h0, return_state=True)
+    y2, h2 = ops.ssm_scan(dt[:, m:], x[:, m:], Bc[:, m:], Cc[:, m:], A_log,
+                          h0=h1, return_state=True)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y) and torch.equal(h2, h)
+
+
+@pytest.mark.parametrize("h0,match", [
+    (torch.zeros(2, 16, 8), "h0 must be"),
+    (torch.zeros(1, 16, 4), "h0 must be"),
+    (torch.zeros(1, 15, 8), "h0 must be"),
+    (torch.zeros(1, 16, 8, dtype=torch.int32), "float"),
+])
+def test_h0_checks(h0, match):
+    """h0 must be (B, di, N) and float, through the entry point and both
+    versions alike; the kernel's version refuses CPU tensors first."""
+    from test_torch_prefill_kernels import ssm_inputs, to_torch
+    args = to_torch(ssm_inputs(1, 8, 16, 8, seed=1))
+    for fn in (ops.ssm_scan, ss.ssm_scan_plain):
+        with pytest.raises(ValueError, match=match):
+            fn(*args, h0=h0)
+    with pytest.raises(ValueError, match=match):
+        ss.ssm_scan_cuda(*args, h0=h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssm_scan_cuda(*args, h0=torch.zeros(1, 16, 8), return_state=True)
+
+
+def test_reference_state_is_differentiable():
+    """Under autograd the plain loop carries gradients to h0 and A_log
+    (the kernel has no backward; the Mamba mixer's train path takes it)."""
+    from test_torch_prefill_kernels import ssm_inputs, to_torch
+    dt, x, Bc, Cc, A_log = to_torch(ssm_inputs(1, 6, 8, 4, seed=7))
+    h0 = torch.from_numpy(_state(1, 8, 4, 8)).requires_grad_(True)
+    A_log.requires_grad_(True)
+    y, h = ref.ssm_scan_reference(dt, x, Bc, Cc, A_log, h0=h0,
+                                  return_state=True)
+    g0, ga = torch.autograd.grad(y.sum() + h.sum(), (h0, A_log))
+    assert g0.shape == h0.shape and ga.shape == A_log.shape
+    assert bool(g0.abs().sum() > 0) and bool(ga.abs().sum() > 0)
+
+
+# (B, S, di, N): the tests' shapes, S not a multiple of the kernel's 16
+# steps a tile, channels not a multiple of a block, and jamba's Mamba width
+SSM_STATE_CARD = [(1, 64, 128, 16), (2, 100, 70, 4), (3, 17, 44, 2),
+                  (2, 33, 130, 32), (1, 4096, 16384, 16), (1, 4093, 16384, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N", SSM_STATE_CARD)
+def test_ssm_kernel_state_vs_plain_on_card(B, S, di, N):
+    """The kernel from a random h0 at every L it takes: y and h_last
+    against the plain version within 1e-4, one launch a call; then a split
+    at S // 2, the second half from the first's h_last."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from test_torch_prefill_kernels import ssm_inputs, to_torch
+    dt, x, Bc, Cc, A_log = (t.cuda() for t in to_torch(
+        ssm_inputs(B, S, di, N, seed=11, a_log="per_channel")))
+    h0 = torch.from_numpy(_state(B, di, N, 12)).cuda()
+    want_y, want_h = ss.ssm_scan_plain(dt, x, Bc, Cc, A_log, h0=h0,
+                                       return_state=True)
+    for lanes in (L for L in ss.LANES if L <= N):
+        before = ss.launches
+        y, h = ss.ssm_scan_cuda(dt, x, Bc, Cc, A_log, h0=h0,
+                                return_state=True, lanes=lanes)
+        torch.cuda.synchronize()
+        assert ss.launches == before + 1
+        for got, want in ((y, want_y), (h, want_h)):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       atol=SSM_TOL, rtol=SSM_TOL)
+    m = S // 2
+    y1, h1 = ops.ssm_scan(dt[:, :m], x[:, :m], Bc[:, :m], Cc[:, :m], A_log,
+                          h0=h0, return_state=True)
+    y2, h2 = ops.ssm_scan(dt[:, m:], x[:, m:], Bc[:, m:], Cc[:, m:], A_log,
+                          h0=h1, return_state=True)
+    torch.cuda.synchronize()
+    for got, want in ((torch.cat([y1, y2], dim=1), want_y), (h2, want_h)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=SSM_TOL, rtol=SSM_TOL)
