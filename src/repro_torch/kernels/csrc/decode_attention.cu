@@ -40,6 +40,16 @@
 // for the product with V, as in the TPU kernel; the JAX model's dense decode
 // path cast them to the cache type first, a bf16 rounding difference inside
 // the 2e-2 bf16 limit of the tests against the JAX package.
+//
+// Logit cap (Gemma 2's, the JAX model's `softcap`, which its Pallas kernel
+// lacks): with cap > 0 a score s = q.k/sqrt(d) becomes cap*tanh(s/cap)
+// before the softmax.  q is then pre-scaled by 1/(sqrt(d)*cap) instead, so
+// that the dot product is s/cap, and the score kept is cap*log2(e) *
+// tanhf(s/cap), in the same log2 units as without a cap.  tanhf (not
+// tanh.approx, whose 2^-11 relative error moves a score at cap 50 by 0.025)
+// is within 2 ulp.  Without a cap the fold and every result are those of
+// the uncapped kernel.  The cap costs one tanhf a score, about 1e6 a call
+// at B8 Skv4096 H32: it hides behind the bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,7 +140,8 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
                float* __restrict__ part_l, float* __restrict__ part_acc,
                int H, int Hk, int G, int d, int Skv, int split_len,
                int direct, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-               int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale_log2) {
+               int64_t v_sb, int64_t v_ss, int64_t v_sh, float q_scale,
+               float cap_log2) {
   using C = Tile<T, DMAX>;
   constexpr int TR = C::kRows, EPC = C::kEPC;
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -179,7 +190,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
     float x;
     if constexpr (sizeof(T) == 4) x = qb[i];
     else x = __bfloat162float(qb[i]);
-    q_s[(i / d) * DMAX + i % d] = x * scale_log2;
+    q_s[(i / d) * DMAX + i % d] = x * q_scale;
   }
   if (tid < G) {
     m_s[tid] = -INFINITY;
@@ -226,6 +237,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
             s = fmaf(qv.w, kv[e + 3], s);
           }
         }
+        if (cap_log2 != 0.f) s = cap_log2 * tanhf(s);   // s was s/cap
       }
       s_s[g * TR + r] = s;
     }
@@ -352,6 +364,7 @@ struct Args {
   void *out, *part_m, *part_l, *part_acc;
   int B, H, Hk, d, Skv, split_len, num_splits;
   int64_t k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float softcap;                                      // 0: none
   cudaStream_t stream;
 };
 
@@ -367,6 +380,8 @@ int launch(const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = a.H / a.Hk;
   const int direct = a.num_splits == 1;
+  const float rd = sqrtf(static_cast<float>(a.d));
+  const float log2e = 1.4426950408889634f;
   decode_partial<T, MAXG, DMAX>
       <<<dim3(a.num_splits, a.Hk, a.B), kThreads, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -375,7 +390,8 @@ int launch(const Args& a) {
           static_cast<float*>(a.part_l), static_cast<float*>(a.part_acc),
           a.H, a.Hk, G, a.d, a.Skv, a.split_len, direct, a.k_sb, a.k_ss,
           a.k_sh, a.v_sb, a.v_ss, a.v_sh,
-          1.4426950408889634f / sqrtf(static_cast<float>(a.d)));
+          a.softcap > 0.f ? 1.f / (rd * a.softcap) : log2e / rd,
+          a.softcap > 0.f ? a.softcap * log2e : 0.f);
   if (!direct) {
     decode_combine<T><<<dim3(a.H, a.B), kThreads, 0, a.stream>>>(
         static_cast<const float*>(a.part_m),
@@ -430,20 +446,22 @@ bool bad_args(int dtype, int B, int H, int Hk, int d) {
 // is cut into num_splits splits of split_len rows (a multiple of the tile's
 // rows, from repro_decode_occupancy).  With one split the output is written
 // at once; otherwise part_m and part_l hold B*Hk*num_splits*G floats,
-// part_acc d times as many, and a second launch merges them.  Returns a
-// cudaError_t: the arguments' check or the launches' status.
+// part_acc d times as many, and a second launch merges them.  softcap: 0
+// for none, else the cap (scores cap*tanh(s/cap)).  Returns a cudaError_t:
+// the arguments' check or the launches' status.
 extern "C" int repro_decode_attention(
     int dtype, const void* q, const void* k, const void* v, const void* kv_len,
     void* out, void* part_m, void* part_l, void* part_acc, int B, int H,
     int Hk, int d, int Skv, int split_len, int num_splits, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, void* stream) {
+    long long v_sh, float softcap, void* stream) {
   if (bad_args(dtype, B, H, Hk, d) || Skv < 1 || split_len < 1 ||
-      num_splits < 1 || num_splits > 65535 || Hk > 65535 || B > 65535)
+      num_splits < 1 || num_splits > 65535 || Hk > 65535 || B > 65535 ||
+      !(softcap >= 0.f && softcap < INFINITY))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, kv_len, out, part_m, part_l, part_acc,
                B, H, Hk, d, Skv, split_len, num_splits,
-               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+               k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, softcap,
                static_cast<cudaStream_t>(stream)};
   return dispatch(H / Hk, d, [&](auto mg, auto md) {
     constexpr int MAXG = decltype(mg)::value, DMAX = decltype(md)::value;

@@ -56,6 +56,22 @@
 // the loads themselves; a TMA producer warp with an mbarrier ring,
 // and two warpgroups whose softmax and products overlap, are later work.
 //
+// Logit cap (Gemma 2's, the JAX model's `softcap`, which its Pallas kernel
+// lacks): with cap > 0 a score s = q.k/sqrt(d) becomes cap*tanh(s/cap)
+// before the mask and the softmax.  In the bf16 kernel the scale that S is
+// multiplied by is then 1/(sqrt(d)*cap), so that the product is s/cap in
+// natural units, and the score kept is cap*log2(e)*tanhf(s/cap) (its
+// exponentials are 2^x).  The fp32 kernel keeps q's scale of 1/sqrt(d),
+// exact at d 256, and divides s by cap, as the plain version does: a scale
+// of 1/(sqrt(d)*cap) would round q once more, enough at scores near 30 to
+// move the result past the fp32 rule at d 256.  tanhf is within 2 ulp;
+// tanh.approx (2^-11 relative) would move a score at cap 50 by 0.025.  The
+// bf16 kernel takes the cap as a template flag, so its uncapped
+// instantiations are those of the kernel without a cap; the fp32 kernel
+// takes it at run time.
+// The cost is one tanhf a visible score, some twenty instructions: about
+// 2.7e8 at B1 S4096 H32 causal.
+//
 // Both kernels read q, k and v in place through their strides (unit stride
 // on d); the TPU code transposed all three to a heads-major layout on every
 // call.  Query head h reads KV head h / G.  Rows past Sq and keys past Skv
@@ -107,7 +123,7 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
               int H, int Hk, int d, int causal, int window, int64_t q_sb,
               int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
               int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-              float sm_scale) {
+              float sm_scale, float cap) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* q_s = smem;                        // [kBQ][dp], pre-scaled
@@ -182,7 +198,8 @@ flash_forward(const T* __restrict__ q, const T* __restrict__ k,
         const int kk = tx + 16 * j, kp = kt + kk;
         const bool ok = kp < Skv && (!causal || kp <= qp) &&
                         (window <= 0 || kp > qp - window);
-        p_s[r * kPStride + kk] = ok ? s[i][j] : -INFINITY;
+        const float x = cap != 0.f ? cap * tanhf(s[i][j] / cap) : s[i][j];
+        p_s[r * kPStride + kk] = ok ? x : -INFINITY;
       }
     }
     __syncthreads();
@@ -483,15 +500,17 @@ __device__ __forceinline__ void wgmma_s(float (&s)[BK / 2], uint64_t da,
 }
 
 // One block (one warpgroup) per (query head, sequence, query tile of 64);
-// blockIdx.z counts the query tiles from the last.
-template <int DP, int BK>
+// blockIdx.z counts the query tiles from the last.  Without CAP, S is
+// scaled by `scale` = log2(e)/sqrt(d); with it, by `scale` = 1/(sqrt(d)*cap)
+// and then capped to cap_log2 * tanhf(.), cap_log2 = cap*log2(e).
+template <int DP, int BK, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 wgmma_forward(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
               int Skv, int H, int Hk, int d, int causal, int window,
               int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
               int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-              int64_t v_sh, float scale_log2) {
+              int64_t v_sh, float scale, float cap_log2) {
   using C = Tile<DP, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t q_s = (smem_addr(smem) + 1023) & ~1023u;  // 1024-aligned
@@ -566,7 +585,7 @@ wgmma_forward(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       (window > 0 && kt <= q0 + kBQ - 1 - window);
 #pragma unroll
     for (int i = 0; i < C::kS; ++i) {
-      float x = s[i] * scale_log2;
+      float x = CAP ? cap_log2 * tanhf(s[i] * scale) : s[i] * scale;
       if (edge) {
         const int qp = (i & 2) ? r1 : r0;
         const int kp = kt + (i >> 2) * 8 + t4 * 2 + (i & 1);
@@ -690,6 +709,7 @@ struct Args {
   void* out;
   int B, Sq, Skv, H, Hk, d, causal, window;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  float softcap;                                      // 0: none
   cudaStream_t stream;
 };
 
@@ -702,13 +722,14 @@ int launch_scalar(const Args& a) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
+  const float rd = sqrtf(static_cast<float>(a.d));
   scalar::flash_forward<float, NCOL>
       <<<grid, scalar::kThreads, smem, a.stream>>>(
           static_cast<const float*>(a.q), static_cast<const float*>(a.k),
           static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Sq,
           a.Skv, a.H, a.Hk, a.d, a.causal, a.window, a.q_sb, a.q_ss, a.q_sh,
           a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh,
-          1.0f / sqrtf(static_cast<float>(a.d)));
+          1.0f / rd, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -718,33 +739,35 @@ int launch_fp32(const Args& a) {
   return launch_scalar<16>(a);
 }
 
-template <int DP, int BK>
+template <int DP, int BK, bool CAP>
 int launch_tc(const Args& a) {
   using C = tc::Tile<DP, BK>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      tc::wgmma_forward<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::kSmem);
+      tc::wgmma_forward<DP, BK, CAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int tiles = (a.Sq + tc::kBQ - 1) / tc::kBQ;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(a.H, a.B, tiles);
   const float log2e = 1.4426950408889634f;
-  tc::wgmma_forward<DP, BK><<<grid, tc::kThreads, C::kSmem, a.stream>>>(
+  const float rd = sqrtf(static_cast<float>(a.d));
+  tc::wgmma_forward<DP, BK, CAP><<<grid, tc::kThreads, C::kSmem, a.stream>>>(
       static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
       static_cast<const tc::bf16*>(a.v), static_cast<tc::bf16*>(a.out), a.Sq,
       a.Skv, a.H, a.Hk, a.d, a.causal, a.window, a.q_sb, a.q_ss, a.q_sh,
       a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh,
-      log2e / sqrtf(static_cast<float>(a.d)));
+      CAP ? 1.0f / (rd * a.softcap) : log2e / rd, a.softcap * log2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The (padded width, key tile) classes of the bf16 kernel; they must match
 // `tile_plan` in kernels/flash_attention.py, and any other pair is refused.
+template <bool CAP>
 int launch_bf16(const Args& a, int dp, int bk) {
   if (a.d > dp) return static_cast<int>(cudaErrorInvalidValue);
-  if (dp == 64 && bk == 64) return launch_tc<64, 64>(a);
-  if (dp == 128 && bk == 64) return launch_tc<128, 64>(a);
-  if (dp == 256 && bk == 32) return launch_tc<256, 32>(a);
+  if (dp == 64 && bk == 64) return launch_tc<64, 64, CAP>(a);
+  if (dp == 128 && bk == 64) return launch_tc<128, 64, CAP>(a);
+  if (dp == 256 && bk == 32) return launch_tc<256, 32, CAP>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -755,23 +778,26 @@ int launch_bf16(const Args& a, int dp, int bk) {
 // (B, Skv, Hk, d) with unit stride on d and the given element strides
 // (batch, sequence, head); for bf16 every row starts on 16 bytes.  out is
 // contiguous (B, Sq, H, d).  causal: 0 or 1; window: 0 for none, else the
-// sliding window (keys in (q - window, q]).  Every query row must see at
-// least one key (the caller checks).  Returns a cudaError_t: the arguments'
-// check or the launch's status.
+// sliding window (keys in (q - window, q]).  softcap: 0 for none, else the
+// cap (scores cap*tanh(s/cap)).  Every query row must see at least one key
+// (the caller checks).  Returns a cudaError_t: the arguments' check or the
+// launch's status.
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* out, int B,
     int Sq, int Skv, int H, int Hk, int d, int causal, int window,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, int dp, int bk, void* stream) {
+    long long v_sh, float softcap, int dp, int bk, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || Hk < 1 || H % Hk != 0 || d < 8 ||
       d > kMaxD || d % 8 != 0 || window < 0 || B > 65535 || H > 65535 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || !(softcap >= 0.f && softcap < INFINITY))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q,    k,    v,    out,  B,    Sq,   Skv,  H,    Hk,   d,
                causal, window, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-               v_sh, static_cast<cudaStream_t>(stream)};
-  return dtype == 0 ? launch_fp32(a) : launch_bf16(a, dp, bk);
+               v_sh, softcap, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_fp32(a);
+  return softcap > 0.f ? launch_bf16<true>(a, dp, bk)
+                       : launch_bf16<false>(a, dp, bk);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -8,7 +8,9 @@ split reduces to a partial (max, sum, acc) per query head, and a second
 kernel merges the partials.  `split_plan` sizes the split from the card's SM
 count and the kernel's occupancy so that the grid is at most one wave; when
 it gives one split, the first kernel writes the output and the merge is not
-launched.  `decode_attention_plain` is the same function in plain PyTorch
+launched.  `softcap` caps the scores as `repro`'s model attention does
+(cap*tanh(s/cap)); `repro`'s Pallas kernel has no cap.
+`decode_attention_plain` is the same function in plain PyTorch
 (`ref.decode_attention_reference` behind the kernel's checks); it serves CPU
 tensors and the tests, and is what the kernel is held against on the card.
 
@@ -22,7 +24,7 @@ import ctypes
 
 import torch
 
-from .ref import decode_attention_reference
+from .ref import check_softcap, decode_attention_reference
 
 MAX_GROUP = 8       # query heads per KV head the kernel takes
 MAX_HEAD_DIM = 256
@@ -95,21 +97,26 @@ def kv_lengths(kv_len, B: int, Skv: int, device: torch.device) -> torch.Tensor:
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+                           v_cache: torch.Tensor, kv_len,
+                           softcap: float | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the same checks, then
     `ref.decode_attention_reference` (one softmax over the whole cache)."""
     check_shapes(q, k_cache, v_cache)
+    check_softcap(softcap)
     lens = kv_lengths(kv_len, q.shape[0], k_cache.shape[1], q.device)
-    return decode_attention_reference(q, k_cache, v_cache, lens)
+    return decode_attention_reference(q, k_cache, v_cache, lens, softcap)
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+                          v_cache: torch.Tensor, kv_len,
+                          softcap: float | None = None) -> torch.Tensor:
     """Launch the CUDA kernel.  q: (B,1,H,d); caches (B,Skv,Hk,d), read in
-    place through their strides (unit stride on d); kv_len int or (B,).
-    Raises on anything the kernel does not take, or if the launch fails."""
+    place through their strides (unit stride on d); kv_len int or (B,);
+    softcap None or a positive cap.  Raises on anything the kernel does
+    not take, or if the launch fails."""
     global launches
     check_shapes(q, k_cache, v_cache)
+    cap = check_softcap(softcap)
     dev = q.device
     if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
         raise ValueError("decode_attention_cuda needs all tensors on one "
@@ -141,7 +148,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(),
             *(None if t is None else t.data_ptr() for t in parts), B, H, Hk,
             d, Skv, split_len, ns, *k_cache.stride()[:3],
-            *v_cache.stride()[:3], stream)
+            *v_cache.stride()[:3], cap, stream)
     if err:
         raise RuntimeError("decode_attention kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
@@ -176,7 +183,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.repro_decode_attention
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [I] + [P] * 8 + [I] * 7 + [L] * 6 + [P]
+        fn.argtypes = [I] + [P] * 8 + [I] * 7 + [L] * 6 + [ctypes.c_float, P]
         fn.restype = I
         occ = lib.repro_decode_occupancy
         occ.argtypes = [I] * 4 + [ctypes.POINTER(I)] * 3

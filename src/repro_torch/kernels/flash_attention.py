@@ -16,7 +16,10 @@ designs) holds two kernels, chosen by the input type:
   TF32 would break the fp32 limit.  Its caller is the profiling catalog's
   small `flash-prefill`, which launch time bounds.
 
-Both skip the K/V tiles that the causal or window mask hides entirely.
+Both skip the K/V tiles that the causal or window mask hides entirely, and
+both take `softcap`, the cap of `repro`'s model attention (cap*tanh(s/cap)
+on the scaled scores, before the masks), which `repro`'s Pallas kernel
+lacks.
 `flash_attention_plain` is the same function in plain PyTorch
 (`ref.attention_reference` behind the kernel's checks); it serves CPU tensors
 and the tests, and is what the kernels are held against on the card.
@@ -37,7 +40,7 @@ import ctypes
 
 import torch
 
-from .ref import attention_reference
+from .ref import attention_reference, check_softcap
 
 MAX_HEAD_DIM = 256
 
@@ -87,23 +90,26 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          window: int | None = None) -> torch.Tensor:
+                          *, causal: bool = True, window: int | None = None,
+                          softcap: float | None = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the same checks, then
     `ref.attention_reference` (one softmax over all keys)."""
     check_args(q, k, v, window)
-    return attention_reference(q, k, v, causal=causal, window=window)
+    check_softcap(softcap)
+    return attention_reference(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int | None = None) -> torch.Tensor:
+                         *, causal: bool = True, window: int | None = None,
+                         softcap: float | None = None) -> torch.Tensor:
     """Launch the CUDA kernel.  q: (B,Sq,H,d); k, v: (B,Skv,Hk,d), all read
-    in place through their strides (unit stride on d).  Returns a contiguous
-    (B,Sq,H,d) in q.dtype.  Raises on anything the kernel does not take, or
-    if the launch fails."""
+    in place through their strides (unit stride on d); softcap None or a
+    positive cap.  Returns a contiguous (B,Sq,H,d) in q.dtype.  Raises on
+    anything the kernel does not take, or if the launch fails."""
     global launches
     check_args(q, k, v, window)
+    cap = check_softcap(softcap)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention_cuda needs all tensors on one "
@@ -130,7 +136,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), B, Sq, Skv, H, Hk, d, int(causal),
             0 if window is None else int(window), q.stride(0), q.stride(1),
             q.stride(2), k.stride(0), k.stride(1), k.stride(2), v.stride(0),
-            v.stride(1), v.stride(2), dp, bk, stream)
+            v.stride(1), v.stride(2), cap, dp, bk, stream)
     if err:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
@@ -144,7 +150,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [I] + [P] * 4 + [I] * 8 + [L] * 9 + [I] * 2 + [P]
+        fn.argtypes = ([I] + [P] * 4 + [I] * 8 + [L] * 9 + [ctypes.c_float]
+                       + [I] * 2 + [P])
         fn.restype = I
         lib.repro_cuda_error_string.argtypes = [I]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p

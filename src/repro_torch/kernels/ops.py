@@ -23,23 +23,25 @@ def _route(t: torch.Tensor, name: str, cuda, plain):
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, kv_len,
+                     softcap: float | None = None) -> torch.Tensor:
     """q: (B,1,H,d); caches: (B,Skv,Hk,d); kv_len: valid entries (int or
-    (B,), each >= 1).  Returns (B,1,H,d) in q.dtype."""
+    (B,), each >= 1); softcap: scores cap*tanh(s/cap), or None.  Returns
+    (B,1,H,d) in q.dtype."""
     fn = _route(q, "decode_attention", _decode.decode_attention_cuda,
                 _decode.decode_attention_plain)
-    return fn(q, k_cache, v_cache, kv_len)
+    return fn(q, k_cache, v_cache, kv_len, softcap)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
     """q: (B,Sq,H,d); k, v: (B,Skv,Hk,d), H a multiple of Hk; causal and/or
-    sliding-window (keys in (i - window, i] for query row i).  Returns
-    (B,Sq,H,d) in q.dtype."""
+    sliding-window (keys in (i - window, i] for query row i); softcap:
+    scores cap*tanh(s/cap), or None.  Returns (B,Sq,H,d) in q.dtype."""
     fn = _route(q, "flash_attention", _flash.flash_attention_cuda,
                 _flash.flash_attention_plain)
-    return fn(q, k, v, causal=causal, window=window)
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 def ssm_scan(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,

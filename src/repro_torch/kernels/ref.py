@@ -7,18 +7,41 @@ import math
 import torch
 
 
+def check_softcap(softcap: float | None) -> float:
+    """The cap as the kernels take it, 0.0 for None; raises unless it is
+    None or a positive finite number."""
+    if softcap is None:
+        return 0.0
+    cap = float(softcap)
+    if not 0.0 < cap < math.inf:
+        raise ValueError(f"softcap must be None or positive and finite, "
+                         f"got {softcap!r}")
+    return cap
+
+
+def cap_scores(s: torch.Tensor, softcap: float | None) -> torch.Tensor:
+    """`repro`'s logit cap on fp32 scores s = q.k/sqrt(d): cap*tanh(s/cap),
+    applied after the scale and before the mask and the softmax
+    (`repro/models/layers.py:133-136`); None leaves s as it is."""
+    if softcap is None:
+        return s
+    return torch.tanh(s / softcap) * softcap
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
-                        kv_len=None) -> torch.Tensor:
+                        kv_len=None,
+                        softcap: float | None = None) -> torch.Tensor:
     """q: (B,Sq,H,d); k,v: (B,Skv,Hk,d).  fp32 softmax, GQA by repeat;
-    the masks use absolute positions (query row i is position i).  Returns
-    q.dtype."""
+    the masks use absolute positions (query row i is position i); scores
+    capped by `cap_scores`.  Returns q.dtype."""
     B, Sq, H, d = q.shape
     Skv, Hk = k.shape[1], k.shape[2]
     G = H // Hk
     kf = k.float().repeat_interleave(G, dim=2)
     vf = v.float().repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(d)
+    s = cap_scores(torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)
+                   / math.sqrt(d), softcap)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -34,15 +57,18 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
-                               v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+                               v_cache: torch.Tensor, kv_len,
+                               softcap: float | None = None) -> torch.Tensor:
     """q: (B,1,H,d) against (B,Skv,Hk,d) caches with kv_len valid entries
-    (scalar or (B,)).  fp32 softmax, GQA by repeat; returns q.dtype."""
+    (scalar or (B,)).  fp32 softmax, GQA by repeat, scores capped by
+    `cap_scores`; returns q.dtype."""
     B, _, H, d = q.shape
     Skv, Hk = k_cache.shape[1], k_cache.shape[2]
     G = H // Hk
     k = k_cache.float().repeat_interleave(G, dim=2)
     v = v_cache.float().repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / math.sqrt(d)
+    s = cap_scores(torch.einsum("bqhd,bkhd->bhqk", q.float(), k)
+                   / math.sqrt(d), softcap)
     lens = torch.as_tensor(kv_len, device=q.device).reshape(-1).expand(B)
     mask = torch.arange(Skv, device=q.device)[None, :] < lens[:, None]
     s = s.masked_fill(~mask[:, None, None, :], -1e30)

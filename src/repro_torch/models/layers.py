@@ -1,6 +1,7 @@
 """Core model layers: RMSNorm, RoPE, GQA projections, cross-attention's
 projections, MLA (multi-head latent attention: the latent, its expansion to
-keys and values, and its attention), the train forward's attention, the
+keys and values, and its attention), the train forward's attention
+(materialised, or streamed over KV chunks past `_MATERIALIZE_LIMIT`), the
 GLU FFN with a SiLU, GELU or ReLU gate (prefill and decode attention are
 `kernels.ops.flash_attention` and `kernels.ops.decode_attention`).
 
@@ -17,12 +18,26 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.ref import cap_scores
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-# above this many scores a head `repro` streams over KV chunks
-# (`attention_chunked`), which is not ported
+# above this many scores a head, attention streams over KV chunks
+# (`attention_chunked`), as `repro`'s does
 _MATERIALIZE_LIMIT = 4096 * 4096
 _CHUNK_Q = _CHUNK_K = 2048
+
+
+def recompute(fn, *args):
+    """fn(*args), its activations recomputed in the backward
+    (`torch.utils.checkpoint`, `repro`'s `jax.checkpoint`) when autograd
+    records; a plain call when it does not.  The port's forwards draw no
+    random numbers, so no RNG state is kept."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -191,28 +206,38 @@ def repeat_kv(k: torch.Tensor, G: int) -> torch.Tensor:
     return torch.repeat_interleave(k, G, dim=2) if G > 1 else k
 
 
+def chunked(Sq: int, Skv: int, force: bool = False) -> bool:
+    """`repro`'s dispatch (`layers.py:115-116`): stream KV chunks when asked
+    or past `_MATERIALIZE_LIMIT` scores a head, for more than one query,
+    and only at sizes the chunks divide (else stay materialised)."""
+    return ((force or Sq * Skv > _MATERIALIZE_LIMIT) and Sq > 1
+            and Sq % _CHUNK_Q == 0 and Skv % _CHUNK_K == 0)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int | None = None) -> torch.Tensor:
-    """`repro`'s materialised GQA attention, under autograd (the train
-    forward; `repro` ran no Pallas kernel there).  q: (B,Sq,H,dh); k, v:
-    (B,Skv,Hk,dh).  Query row i sees keys j <= i (causal) and j > i - window.
-    Its rounding points: q scaled by dh**-0.5 (itself rounded to the model
-    type) in the model type, scores
-    accumulated in fp32, the softmax in fp32, probs cast to v's type, P.V
-    accumulated in fp32 and cast to q's type.  v may be narrower than q and
-    k (MLA).  Returns (B,Sq,H,v's width)."""
+              causal: bool = True, window: int | None = None,
+              softcap: float | None = None,
+              force_chunked: bool = False) -> torch.Tensor:
+    """`repro`'s GQA attention, under autograd (the train forward; `repro`
+    ran no Pallas kernel there): `attention_chunked` where `chunked` says,
+    else materialised.  q: (B,Sq,H,dh); k, v: (B,Skv,Hk,dh).  Query row i
+    sees keys j <= i (causal) and j > i - window.  Its rounding points: q
+    scaled by dh**-0.5 (itself rounded to the model type) in the model
+    type, scores accumulated in fp32 and capped there (`softcap`), the
+    softmax in fp32, probs cast to v's type, P.V accumulated in fp32 and
+    cast to q's type.  v may be narrower than q and k (MLA).  Returns
+    (B,Sq,H,v's width)."""
     B, Sq, H, dh = q.shape
     Skv = k.shape[1]
-    if (Sq * Skv > _MATERIALIZE_LIMIT and Sq > 1 and Sq % _CHUNK_Q == 0
-            and Skv % _CHUNK_K == 0):
-        raise NotImplementedError(
-            f"attention at Sq={Sq}, Skv={Skv}: `repro` streams KV chunks "
-            "there (attention_chunked), which is not ported; see ROADMAP.md")
+    if chunked(Sq, Skv, force_chunked):
+        return attention_chunked(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
     G = H // k.shape[2]
     k, v = repeat_kv(k, G), repeat_kv(v, G)
     # the scale rounded to q's type first, as JAX's weak float is
     scale = torch.tensor(dh ** -0.5, dtype=q.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), k.float())
+    scores = cap_scores(scores, softcap)
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -225,6 +250,108 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      q_offset=0, kv_len=None, softcap: float | None = None,
+                      chunk_q: int = _CHUNK_Q,
+                      chunk_k: int = _CHUNK_K) -> torch.Tensor:
+    """`repro`'s `attention_chunked`: for each query chunk an online softmax
+    over KV chunks, never more than (B, H, chunk_q, chunk_k) scores, each
+    KV chunk's body recomputed in the backward (`recompute`, `repro`'s
+    `jax.checkpoint(kv_body)`).  q: (B,Sq,H,dh); k, v: (B,Skv,Hk,dh), v
+    possibly narrower (MLA); Sq and Skv multiples of the chunks.  q_offset
+    is query row 0's position, kv_len the keys visible (a scalar).  Its
+    rounding points: q scaled in the model type, scores and the running
+    max m, sum l and output acc in fp32, p cast to v's type before P.V,
+    acc / max(l, 1e-30) cast to q's type.
+
+    A row whose first chunks are all masked gathers finite garbage there
+    (every score NEG_INF, so p = 1), which its first visible chunk wipes
+    to exactly 0 (corr = exp(NEG_INF - m) = 0); a masked chunk after a
+    visible one adds exactly 0.  So the chunks that the masks hide from
+    every row of a query chunk are not computed (`_visible_chunks`), which
+    gives the same bits as computing them (tested), as long as every row
+    of that query chunk sees some key; where one does not, or q_offset or
+    kv_len lives on the device, every chunk is computed, as in `repro`."""
+    B, Sq, H, dh = q.shape
+    Skv, dv = k.shape[1], v.shape[-1]
+    G = H // k.shape[2]
+    k, v = repeat_kv(k, G), repeat_kv(v, G)
+    scale = torch.tensor(dh ** -0.5, dtype=q.dtype)
+    qs = q * scale
+    arange_q = torch.arange(chunk_q, device=q.device)
+    visible = _visible_chunks(causal, window, q_offset, kv_len, Skv)
+    outs = []
+    for qi in range(Sq // chunk_q):
+        rows = slice(qi * chunk_q, (qi + 1) * chunk_q)
+        qp = q_offset + qi * chunk_q + arange_q
+        m = torch.full((B, H, chunk_q), -math.inf, device=q.device)
+        l = torch.zeros((B, H, chunk_q), device=q.device)
+        acc = torch.zeros((B, H, chunk_q, dv), device=q.device)
+        for ki in range(Skv // chunk_k):
+            k0 = ki * chunk_k
+            if visible is not None and not visible(qi * chunk_q, chunk_q,
+                                                   k0, chunk_k):
+                continue
+            cols = slice(k0, k0 + chunk_k)
+            m, l, acc = recompute(
+                _kv_chunk, qs[:, rows], k[:, cols], v[:, cols], m, l, acc,
+                qp, k0, causal, window, kv_len, softcap)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]     # (B,H,cq,dv)
+        outs.append(out.transpose(1, 2))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _kv_chunk(q_blk, k_blk, v_blk, m, l, acc, qp, k0: int, causal: bool,
+              window, kv_len, softcap):
+    """One KV chunk's step of the online softmax: (m, l, acc) updated."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(), k_blk.float())
+    s = cap_scores(s, softcap)
+    kp = k0 + torch.arange(k_blk.shape[1], device=s.device)
+    mask = torch.ones((qp.shape[0], kp.shape[0]), dtype=torch.bool,
+                      device=s.device)
+    if causal:
+        mask &= kp[None, :] <= qp[:, None]
+    if window is not None:
+        mask &= kp[None, :] > qp[:, None] - window
+    if kv_len is not None:
+        mask &= kp[None, :] < kv_len
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bhqk,bkhd->bhqd", p.to(v_blk.dtype).float(), v_blk.float())
+    return m_new, l, acc
+
+
+def _visible_chunks(causal: bool, window, q_offset, kv_len, Skv: int):
+    """A test (q0, cq, k0, ck) -> whether any query of positions
+    [q0, q0 + cq) (plus q_offset) sees a key in [k0, k0 + ck); it answers
+    True for every chunk of a query chunk with a row that sees no key.
+    None where the positions or lengths live on the device."""
+    if isinstance(q_offset, torch.Tensor) or isinstance(kv_len,
+                                                        torch.Tensor):
+        return None
+    last = Skv if kv_len is None else min(int(kv_len), Skv)
+
+    def keys(p: int) -> tuple[int, int]:
+        lo = 0 if window is None else max(0, p - window + 1)
+        hi = min(p if causal else Skv - 1, last - 1)
+        return lo, hi
+
+    def test(q0: int, cq: int, k0: int, ck: int) -> bool:
+        (lo0, hi0), (lo1, hi1) = keys(q_offset + q0), keys(
+            q_offset + q0 + cq - 1)
+        if lo0 > hi0 or lo1 > hi1:      # a row that sees nothing (the ends
+            return True                 # are the rows that can): no skip
+        # rows' key ranges move up by at most one a row: their union is
+        # [lo0, hi1]
+        return k0 <= hi1 and k0 + ck - 1 >= lo0
+    return test
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -18,15 +18,27 @@ each in every mode `repro` runs it in:
     encoder of dense blocks over the caller's source frame embeddings, and
     decoder blocks with cross-attention over its output;
   * mLSTM `(("mlstm", "none"),)`.
-Modes: `train` (full-sequence logits, the offline train step), `prefill`
+Modes: `train` (full-sequence logits, the offline train step),
+`train_hidden` (the final-normed hiddens, for the fused loss), `prefill`
 (the prompt's pass: last-token logits and the decode cache) and `decode`
 (one token against the cache, the online-serving hot path).  Prefill
 attention (self, cross and the encoder's) is `kernels.ops.flash_attention`,
 decode attention (self and cross) `kernels.ops.decode_attention`, and the
 Mamba prefill's scan `kernels.ops.ssm_scan`, which returns the state the
-cache keeps; the train forward keeps `repro`'s materialised attention and
-the plain scan under autograd, and the mLSTM, the MoE and Mamba's
-one-token decode run no kernel (`repro` ran them in jnp).
+cache keeps; the train forward keeps `repro`'s attention (materialised, or
+streamed over KV chunks past 4096**2 scores a head or with
+`attn_force_chunked`) and the plain scan under autograd, and the mLSTM,
+the MoE and Mamba's one-token decode run no kernel (`repro` ran them in
+jnp).
+
+`softcap` caps the scores (cap*tanh(s/cap)) exactly where `repro`'s does
+(ROADMAP.md F8): GQA self-attention in train, in prefill (the flash
+kernel) and in decode against a plain cache (the decode kernel, MHA too);
+not on the ring cache's decode, in MLA, in cross-attention or in the
+encoder.  With `remat` (the default) the train forward recomputes each
+pattern repeat (its P layers, `repro`'s `jax.checkpoint(superblock)`) and
+each encoder block in the backward (`torch.utils.checkpoint`): loss and
+gradients are those without it.
 
 Blocks are an `nn.ModuleList` of per-layer modules, run by a Python loop; the
 cache keeps `repro`'s layout, a tuple over pattern positions of {"k", "v"}
@@ -35,14 +47,11 @@ with MLA), {"h", "conv"} (Mamba) or {"C", "n", "m", "conv"} (mLSTM)
 tensors with a leading `repeats` dimension.  A sliding-window model's
 cache holds min(window, capacity) rows; at `window` rows it is `repro`'s
 ring.
-
-`repro` wrapped the train forward's layer scan in `jax.checkpoint` (remat),
-which only trades recomputation for activation memory; the port keeps
-autograd's saved activations instead.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
@@ -83,6 +92,7 @@ class ModelConfig:
     attn_kind: str = "gqa"            # gqa | mla
     window: int | None = None         # sliding window (None = full)
     rope_theta: float = 10000.0
+    softcap: float | None = None      # scores cap*tanh(s/cap) (F8)
     kv_lora_rank: int = 0             # mla: the latent's width r
     rope_head_dim: int = 64           # mla: the rotary part's width dr
     ffn_act: str = "silu"
@@ -108,6 +118,10 @@ class ModelConfig:
     frontend: str = "none"            # none | audio | patch
     num_patches: int = 0              # vlm: image patches before the text
     dtype: torch.dtype = torch.bfloat16
+    attn_impl: str = "reference"      # data only: dead in `repro` (F3)
+    attn_force_chunked: bool = False  # stream KV chunks even at short seqs
+    fused_loss: bool = False          # stream the vocab dim in the loss
+    remat: bool = True                # recompute each repeat in the backward
     vocab_pad_multiple: int = 256
 
     def __post_init__(self):
@@ -375,18 +389,20 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
     the window's, ring-aligned; the cross keys and values of S_src rows),
     aux).
     train: the same batch -> (logits (B, n_p + S, Vpad), aux).
+    train_hidden: the same batch -> (final-normed hiddens (B, n_p + S, d),
+    aux).
     aux is the sum of the layers' MoE aux losses, an fp32 scalar (zero
     without MoE).
 
     In decode the cache is updated in place: `repro` wrote a new cache
     functionally, which at full width would copy every layer's cache on
     every step.  The returned cache is the object passed in."""
-    if mode in ("train", "prefill"):
-        return _forward_blocks(params, cfg, batch, prefill=mode == "prefill")
+    if mode in ("train", "train_hidden", "prefill"):
+        return _forward_blocks(params, cfg, batch, mode)
     if mode != "decode" or cache is None:
         raise NotImplementedError(
-            f"mode={mode!r}: the port runs train, prefill, and decode "
-            "against a cache; see ROADMAP.md")
+            f"mode={mode!r}: the port runs train, train_hidden, prefill, "
+            "and decode against a cache; see ROADMAP.md")
     return _forward_decode(params, cfg, batch, cache, pos)
 
 
@@ -398,6 +414,7 @@ class _AttnStep(NamedTuple):
     live: int                   # the longest lens: caches are cut to it
     rope: tuple                 # rotary angles at each sequence's position
     rows: torch.Tensor          # arange(B)
+    ring: bool                  # the sliding window's ring cache
 
 
 def _attn_step(cfg: ModelConfig, c: dict, pos, B: int, dev) -> _AttnStep:
@@ -437,7 +454,7 @@ def _attn_step(cfg: ModelConfig, c: dict, pos, B: int, dev) -> _AttnStep:
     # no row past it is visible, and the kernel sizes its split from it
     return _AttnStep(pos_b % cap if ring else pos_b, lens, src_lens,
                      int(host_lens.max()), rope,
-                     torch.arange(B, device=dev))
+                     torch.arange(B, device=dev), ring)
 
 
 def _forward_decode(params: Transformer, cfg: ModelConfig, batch: dict,
@@ -492,9 +509,11 @@ def _forward_decode(params: Transformer, cfg: ModelConfig, batch: dict,
             kc[at.rows, at.slot] = k[:, 0]
             vc[at.rows, at.slot] = v[:, 0]
             # every Sq == 1 attention takes the decode kernel, MHA included
-            # (`repro` sent MHA down its dense path: the same function)
+            # (`repro` sent MHA down its dense path: the same function);
+            # `repro` caps the scores on a plain cache, never on the ring
             o = ops.decode_attention(q, kc[:, :at.live], vc[:, :at.live],
-                                     at.lens)
+                                     at.lens,
+                                     None if at.ring else cfg.softcap)
             x = x + o.reshape(B, 1, H * dh) @ blk.attn.w_o
         if "xk" in c:
             # the encoder's keys and values, every source row visible
@@ -509,11 +528,12 @@ def _forward_decode(params: Transformer, cfg: ModelConfig, batch: dict,
 
 
 def _encoder_forward(params: Transformer, cfg: ModelConfig, batch: dict,
-                     attend):
+                     attend, remat: bool = False):
     """The bidirectional encoder over the stub frame embeddings
     `batch["src_embeds"]` (B, S_src, d), with rotary at arange(S_src);
-    `attend` is the train or the prefill attention.  A batch without them
-    raises KeyError, as `repro`'s forward does (ROADMAP.md F6)."""
+    `attend` is the train or the prefill attention, `remat` recomputes
+    each block in the backward.  A batch without them raises KeyError, as
+    `repro`'s forward does (ROADMAP.md F6)."""
     if "src_embeds" not in batch:
         raise KeyError(f"src_embeds: {cfg.name} encodes the batch's source "
                        "frame embeddings, and `repro` raises KeyError here "
@@ -524,23 +544,29 @@ def _encoder_forward(params: Transformer, cfg: ModelConfig, batch: dict,
     B, S_src, _ = x.shape
     rope = L.rope_table(torch.arange(S_src, device=dev)[None], cfg.head_dim,
                         cfg.rope_theta)
-    for blk in params.enc_blocks:
+
+    def block(blk: Block, x: torch.Tensor) -> torch.Tensor:
         h = L.rmsnorm(blk.norm1, x)
         q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
         o = attend(q, k, v, causal=False)
         x = x + o.reshape(B, S_src, cfg.num_heads * cfg.head_dim) \
             @ blk.attn.w_o
-        x, _ = _ffn(blk, cfg, x)
+        return _ffn(blk, cfg, x)[0]
+
+    for blk in params.enc_blocks:
+        x = L.recompute(block, blk, x) if remat else block(blk, x)
     return L.rmsnorm(params.enc_final_norm, x)
 
 
 def _forward_blocks(params: Transformer, cfg: ModelConfig, batch: dict,
-                    prefill: bool):
-    """Train and prefill, every pattern.  Attention: train
-    runs `repro`'s materialised `layers.attention` under autograd, prefill
-    the port's flash kernel on the card, where `repro` ran its materialised
-    attention (F3's documented divergence, held at the reference's
-    tolerances).  q and k come out of `apply_rope` and v out of a reshape,
+                    mode: str):
+    """Train, train_hidden and prefill, every pattern.  Attention: train
+    runs `repro`'s `layers.attention` under autograd (materialised, or
+    streamed over KV chunks), prefill the port's flash kernel on the card,
+    where `repro` ran its own attention (F3's documented divergence, held at
+    the reference's tolerances).  The GQA self-attention's scores are
+    capped by `cfg.softcap` in both; MLA, cross-attention and the encoder
+    are not (F8).  q and k come out of `apply_rope` and v out of a reshape,
     all contiguous, so the bf16 kernel's 16-byte row check holds at every
     head width the configs have (d 120: 240-byte rows) and no copy is made.
     Cross-attention sees every source row (non-causal, Sq != Skv) and its
@@ -550,10 +576,23 @@ def _forward_blocks(params: Transformer, cfg: ModelConfig, batch: dict,
     pre-conv input, projected again from those rows of the block's input
     alone (each row's projection is its own), as `repro` takes them.  The
     mLSTM: the chunked `ssm.mlstm_mixer`; its cache is the carry and the
-    conv window, taken as Mamba's."""
-    attend = ops.flash_attention if prefill else L.attention
-    enc = (_encoder_forward(params, cfg, batch, attend) if cfg.enc_layers
-           else None)
+    conv window, taken as Mamba's.  With `cfg.remat` a train forward runs
+    each pattern repeat (and each encoder block) under `layers.recompute`."""
+    prefill = mode == "prefill"
+    remat = cfg.remat and not prefill
+    if prefill:
+        attend = ops.flash_attention
+        self_attend = functools.partial(attend, softcap=cfg.softcap)
+        # the kernels take one width for q, k and v: MLA's v is padded
+        mla_attend = L.pad_v(attend)
+    else:
+        attend = L.attention
+        self_attend = functools.partial(attend, softcap=cfg.softcap,
+                                        force_chunked=cfg.attn_force_chunked)
+        mla_attend = functools.partial(attend,
+                                       force_chunked=cfg.attn_force_chunked)
+    enc = (_encoder_forward(params, cfg, batch, attend, remat)
+           if cfg.enc_layers else None)
     x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     H, dh, W, P = cfg.num_heads, cfg.head_dim, cfg.window, len(cfg.pattern)
@@ -561,15 +600,10 @@ def _forward_blocks(params: Transformer, cfg: ModelConfig, batch: dict,
     # MLA rotates its dr-wide part alone
     rope = L.rope_table(torch.arange(S, device=x.device)[None],
                         cfg.rope_head_dim if mla else dh, cfg.rope_theta)
-    # the kernels take one width for q, k and v: MLA's v is padded
-    mla_fn = L.pad_v(attend) if prefill else attend
-    # the prefill cache: for each pattern position, its leaves by name, one
-    # tensor a repeat
-    leaves = [{} for _ in cfg.pattern]
-    aux = torch.zeros((), device=x.device)
     tail = cfg.ssm_conv_dim - 1
-    for l, blk in enumerate(params.blocks):
-        i = l % P
+
+    def layer(blk: Block, i: int, x: torch.Tensor, aux: torch.Tensor):
+        """Layer at pattern position i: (x, its prefill cache leaves, aux)."""
         mixer, ffn = cfg.pattern[i]
         new = {}
         h = L.rmsnorm(blk.norm1, x)
@@ -590,11 +624,11 @@ def _forward_blocks(params: Transformer, cfg: ModelConfig, batch: dict,
         elif mla:
             ckv, kr = L.mla_latent(blk.attn, h, cfg, rope)
             x = x + L.mla_attend(blk.attn, h, ckv, kr, cfg, rope,
-                                 attend=mla_fn, causal=True)
+                                 attend=mla_attend, causal=True)
             new = {"ckv": ckv, "kr": kr}
         else:
             q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
-            o = attend(q, k, v, causal=True, window=W)
+            o = self_attend(q, k, v, causal=True, window=W)
             if prefill and W is not None and S > W:
                 # the last W rows, rolled so that position p sits at slot
                 # p % W (`repro`'s ring-aligned prefill cache)
@@ -609,15 +643,33 @@ def _forward_blocks(params: Transformer, cfg: ModelConfig, batch: dict,
             o = attend(q, xk, xv, causal=False)
             new.update(xk=xk, xv=xv)
             x = x + o.reshape(B, S, H * dh) @ blk.cross.w_o
-        if prefill:
-            for name, t in new.items():
-                leaves[i].setdefault(name, []).append(t)
         if ffn != "none":
             x, a = _ffn(blk, cfg, x)
             aux = aux + a
+        return x, new, aux
+
+    def repeat(x: torch.Tensor, aux: torch.Tensor, r: int):
+        """Pattern repeat r (layers r * P .. r * P + P - 1) in train."""
+        for i in range(P):
+            x, _, aux = layer(params.blocks[r * P + i], i, x, aux)
+        return x, aux
+
+    aux = torch.zeros((), device=x.device)
     if not prefill:
+        for r in range(cfg.repeats):
+            x, aux = (L.recompute(repeat, x, aux, r) if remat
+                      else repeat(x, aux, r))
         x = L.rmsnorm(params.final_norm, x)
+        if mode == "train_hidden":
+            return x, aux
         return x @ params.lm_head, aux
+    # the prefill cache: for each pattern position, its leaves by name, one
+    # tensor a repeat
+    leaves = [{} for _ in cfg.pattern]
+    for l, blk in enumerate(params.blocks):
+        x, new, aux = layer(blk, l % P, x, aux)
+        for name, t in new.items():
+            leaves[l % P].setdefault(name, []).append(t)
     cache = tuple({name: torch.stack(ts) for name, ts in named.items()}
                   for named in leaves)
     return _last_logits(params, x), cache, aux

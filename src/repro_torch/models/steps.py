@@ -3,8 +3,11 @@ the prefill and greedy generation around it, and the train and eval steps
 of the offline workload."""
 from __future__ import annotations
 
+import math
+
 import torch
 
+from . import layers as L
 from .model import ModelConfig, forward, init_cache
 
 
@@ -99,21 +102,72 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return nll.mean()
 
 
+def chunked_cross_entropy(x: torch.Tensor, lm_head: torch.Tensor,
+                          targets: torch.Tensor, vocab_size: int,
+                          mask: torch.Tensor, chunk: int = 8192
+                          ) -> torch.Tensor:
+    """`repro`'s fused loss: the masked mean next-token cross-entropy of
+    the hiddens x (B, S, d) (post-norm) under lm_head (d, Vpad), never
+    materialising the (B, S, Vpad) logits: a streaming log-sum-exp over
+    vocab chunks of `chunk` columns (gcd(Vpad, chunk) where it does not
+    divide), each chunk's logits recomputed in the backward
+    (`layers.recompute`).  Each chunk's logits are x @ w in the model type,
+    then fp32, as the unfused loss's.  x enters the chunks through one
+    fp32 copy, so that the chunks' gradients of x are summed in fp32 and
+    rounded to x's type once (summed in x's type, 125 chunks of gemma-7b's
+    vocabulary would round the sum 125 times); the forward's bits are
+    unchanged."""
+    d, Vpad = lm_head.shape
+    if Vpad % chunk:
+        chunk = math.gcd(Vpad, chunk) or Vpad
+    B, S, _ = x.shape
+    m = torch.full((B, S), -1e30, device=x.device)
+    s = torch.zeros((B, S), device=x.device)
+    gold = torch.zeros((B, S), device=x.device)
+    xf = x.float()
+    for c0 in range(0, Vpad, chunk):
+        m, s, gold = L.recompute(_ce_chunk, xf, lm_head[:, c0:c0 + chunk],
+                                 targets, c0, vocab_size, m, s, gold)
+    nll = (m + torch.log(torch.clamp(s, min=1e-30))) - gold
+    nll = nll * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _ce_chunk(xf, w, targets, c0: int, vocab_size: int, m, s, gold):
+    """One vocab chunk's step of `chunked_cross_entropy`: (m, s, gold)."""
+    chunk = w.shape[1]
+    logits = (xf.to(w.dtype) @ w).float()                   # (B, S, chunk)
+    col = c0 + torch.arange(chunk, device=logits.device)
+    logits = torch.where(col < vocab_size, logits, -1e9)
+    m_new = torch.maximum(m, logits.amax(-1))
+    s = s * torch.exp(m - m_new) + torch.exp(
+        logits - m_new[..., None]).sum(-1)
+    local = targets - c0
+    inside = (local >= 0) & (local < chunk)
+    g = torch.gather(logits, -1,
+                     torch.clamp(local, 0, chunk - 1)[..., None])[..., 0]
+    return m_new, s, gold + torch.where(inside, g, 0.0)
+
+
 def loss_fn(params, cfg: ModelConfig, batch: dict):
     """Next-token LM loss plus the MoE aux loss, `repro`'s: returns
     (ce + moe_aux_weight * aux, (ce, aux)).  The whole batch goes to the
     forward (patch or source embeddings too), and the patch positions are
-    cut out of the logits before the loss."""
+    cut out of the logits (or, with `cfg.fused_loss`, out of the hiddens
+    before `chunked_cross_entropy`) before the loss."""
     toks = torch.as_tensor(batch["tokens"], device=params.embed.device).long()
     targets = torch.cat([toks[:, 1:], toks[:, :1]], dim=1)
     mask = torch.ones(toks.shape, dtype=torch.float32, device=toks.device)
     mask[:, -1] = 0.0
-    logits, aux = forward(params, cfg, {**batch, "tokens": toks},
-                          mode="train")
+    batch = {**batch, "tokens": toks}
     n_p = _num_patches(cfg, batch)
-    if n_p:
-        logits = logits[:, n_p:]
-    ce = cross_entropy(logits, targets, cfg.vocab_size, mask)
+    if cfg.fused_loss:
+        hidden, aux = forward(params, cfg, batch, mode="train_hidden")
+        ce = chunked_cross_entropy(hidden[:, n_p:], params.lm_head, targets,
+                                   cfg.vocab_size, mask)
+    else:
+        logits, aux = forward(params, cfg, batch, mode="train")
+        ce = cross_entropy(logits[:, n_p:], targets, cfg.vocab_size, mask)
     return ce + cfg.moe_aux_weight * aux, (ce, aux)
 
 

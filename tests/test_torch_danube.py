@@ -104,10 +104,19 @@ def test_attention_matches_jax(dtype, causal, window):
 
 
 def test_attention_past_the_materialise_limit_raises():
-    q = torch.zeros(1, 4096, 1, 8)
-    k = torch.zeros(1, 8192, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        L.attention(q, k, k)
+    """Past 4096**2 scores a head (with chunks that divide) the port no
+    longer raises: it streams KV chunks as `repro` does, to `repro`'s
+    result (with h2o-danube-1.8b's window of 4096)."""
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((1, 4096, 2, 8)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 8192, 1, 8)).astype(np.float32)
+            for _ in range(2))
+    want = JL.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=False, window=4096)
+    got = L.attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                      causal=False, window=4096)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
 
 
 def test_repeat_kv_matches_jax():

@@ -105,17 +105,22 @@ def test_position_past_the_cache_raises(device, pos):
 
 
 def test_only_decode_is_ported(setup):
-    """Decode, prefill and train are ported for the dense pattern; a mode
-    the port does not run (`repro`'s `train_hidden`) is refused."""
+    """Decode, prefill, train and (since the fused loss) `repro`'s
+    `train_hidden` are ported for the dense pattern; a mode `repro` does
+    not have is refused."""
     _, _, cfg, model = setup
     logits, cache, _ = forward(
         model, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
         mode="prefill")
     assert tuple(logits.shape) == (1, cfg.padded_vocab)
     assert cache[0]["k"].shape[2] == 4
+    hidden, _ = forward(model, cfg,
+                        {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                        mode="train_hidden")
+    assert tuple(hidden.shape) == (1, 4, cfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         forward(model, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                mode="train_hidden")
+                mode="sample")
 
 
 # ReLU (seamless-m4t-medium), the MoE pattern (granite-moe-1b-a400m) and

@@ -77,7 +77,8 @@ def test_every_module_imports_without_jax_or_repro():
         "       'configs.seamless_m4t_medium',\n"
         "       'configs.granite_moe_1b_a400m',\n"
         "       'configs.deepseek_v2_lite_16b',\n"
-        "       'configs.jamba_1_5_large_398b')}\n"
+        "       'configs.jamba_1_5_large_398b', 'serving.kv_quant',\n"
+        "       'runtime.compression')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")

@@ -233,8 +233,8 @@ def test_train_step_losses_vs_jax(carried):
 
 
 def test_train_mode_refused_for_the_dense_pattern():
-    """The mLSTM pattern runs train, prefill and decode; a mode the port
-    does not run (`repro`'s `train_hidden`) is refused."""
+    """The mLSTM pattern runs train, train_hidden (`repro`'s, for the fused
+    loss), prefill and decode; a mode `repro` does not have is refused."""
     from repro_torch.models import forward
     cfg = get_config(ARCH, smoke=True)
     model = init_params(torch.Generator().manual_seed(0), cfg)
@@ -243,6 +243,10 @@ def test_train_mode_refused_for_the_dense_pattern():
         mode="prefill")
     assert tuple(logits.shape) == (1, cfg.padded_vocab)
     assert set(cache[0]) == {"C", "n", "m", "conv"}
+    hidden, _ = forward(model, cfg,
+                        {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                        mode="train_hidden")
+    assert tuple(hidden.shape) == (1, 4, cfg.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         forward(model, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
-                mode="train_hidden")
+                mode="sample")
