@@ -112,7 +112,13 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               one block of the torch engine under torch.profiler (the card's
               busy time and launches); then 200 devices under heavy faults,
               the torch engine in lockstep with numpy tick by tick and
-              byte-equal SimResults;
+              byte-equal SimResults; then tests/test_sim_parity.py's
+              configuration (50 devices, 4 h of 30 s ticks, trace B, seed
+              12345, `muxflow`, a predictor trained on the card as that
+              test trains its own): the torch engine on the card against
+              the per-device `LegacyClusterSim` under the test's rule
+              (counts equal, floats rel 1e-9 / abs 1e-12, p99 rel 0.02 /
+              abs 0.2, timelines rel 1e-9), each engine's seconds;
  12. control  MuxFlow's control plane (`repro_torch.cluster`, the tick loop
               with agents, fault campaign, autoscaler and job manager over
               the engine): `repro`'s flagship `diurnal-mixed` at the paper's
@@ -203,7 +209,24 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               gemma-7b's first two layers at full width, a train step at
               B1 x 8192 fused against unfused (loss 1e-3, gradients 2e-2
               by relative norm), then one AdamW step.
-Then one line of each phase's seconds.  The line before the last is
+ 16. examples the example ports: `examples/torch_serve_multiplex.py` at
+              full width in a child process (the SIGINT its timer sends at
+              half the horizon is the child's own; the child loads the
+              kernels phase 2 built): h2o-danube-1.8b FULL decoding B8 on
+              a standing cache of capacity 128 through decode_attention,
+              granite-moe-1b-a400m FULL's AdamW steps (B8 x 64) packed in by
+              the multiplexer, 35 Poisson requests (the original's 150 cut
+              for time); the signal must land (SIGINT caught, offline
+              launches frozen, one checkpoint, one release, no offline step
+              begun after it, the online side serving on or the eviction
+              stated) and decode_attention launch exactly 24 times a decode
+              call; the child's set-up is printed split into its parts;
+              then `torch_quickstart` (the predictor trained on the
+              card, Algorithm 1's plan) and `torch_train_lm --steps 40`
+              (evicted at 20, resumed from the checkpoint at 20, the loss
+              falls).  `torch_cluster_sim`'s paths are phases 11 and 12's.
+Then one line of each phase's seconds and the card's name and power limit
+again (phase 1's line).  The line before the last is
 {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without CUDA, or outside a checkout of the
 repository, it exits non-zero before printing any result.
@@ -211,11 +234,13 @@ repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -470,17 +495,19 @@ def graph_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def phase_device(torch) -> str:
+def phase_device(torch) -> tuple[str, str]:
+    """(the card's kind, nvidia-smi's name and power limit line)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
-    phase("1/15 device", kind=repr(kind), count=torch.cuda.device_count(),
+    phase("1/16 device", kind=repr(kind), count=torch.cuda.device_count(),
           capability=torch.cuda.get_device_capability(0),
           torch=torch.__version__, cuda=torch.version.cuda)
-    return kind
+    return kind, card
 
 
 def phase_build() -> None:
@@ -489,7 +516,7 @@ def phase_build() -> None:
     paths = _build.build(*_build.sources())
     for name in paths:
         _build.load(name)
-    phase("2/15 build", kernels=",".join(paths),
+    phase("2/16 build", kernels=",".join(paths),
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
@@ -567,7 +594,7 @@ def check_decode(torch) -> float:
                 zoo2[(name, dtype)] = max(zoo2[(name, dtype)], err)
             n += 1
     require(len(catalog) == 2, "the catalog's decode shape was not checked")
-    phase("3/15 kernels", kernel="decode_attention", cases=n,
+    phase("3/16 kernels", kernel="decode_attention", cases=n,
           max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
           max_abs_err_fp32=f"{worst[torch.float32]:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_fp32=f"{catalog['float32']:.3e}",
@@ -634,7 +661,7 @@ def check_flash(torch) -> float:
         del q, big, k, v, out
     torch.cuda.empty_cache()
     small = [e for (s, _), e in errs.items() if s in FLASH_SHAPES]
-    phase("3/15 kernels", kernel="flash_attention", cases=len(errs),
+    phase("3/16 kernels", kernel="flash_attention", cases=len(errs),
           max_abs_err_sweep=f"{max(small):.3e}",
           max_abs_err_mistral_S4096_bf16=f"{errs[(FLASH_MAIN, 'bfloat16')]:.3e}",
           max_abs_err_mistral_S4096_fp32=f"{errs[(FLASH_MAIN, 'float32')]:.3e}",
@@ -699,7 +726,7 @@ def check_mla(torch) -> None:
                 torch, out, want, 2e-5, rtol[dtype])
             del q, k, v, out, want
     torch.cuda.empty_cache()
-    phase("3/15 kernels", kernel="decode_attention+flash_attention",
+    phase("3/16 kernels", kernel="decode_attention+flash_attention",
           route="mla_v_zero_padded", cases=len(MLA_DECODE) * 2
           + len(MLA_FLASH) + 1,
           **{f"max_abs_err_{kind}_qk{dq}_v{dv}_{dt}": f"{e:.3e}"
@@ -797,7 +824,7 @@ def check_capped(torch) -> None:
                     del out
                 del q, k, v
                 torch.cuda.empty_cache()
-    phase("3/15 kernels", kernel="decode_attention+flash_attention",
+    phase("3/16 kernels", kernel="decode_attention+flash_attention",
           softcap=",".join(str(c) for c in SOFTCAPS), cases=len(errs),
           max_abs_score=f"{spread:.1f}",
           **{f"max_abs_err_{kind}_d{d}_cap{cap:g}_{dt}":
@@ -861,7 +888,7 @@ def check_ssm(torch) -> float:
     sweep = {a: max(e for (s, k), e in errs.items()
                     if k == a and s != SSM_MAIN)
              for a in ("shared", "per_channel")}
-    phase("3/15 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+    phase("3/16 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
           lanes="1,2,4",
           max_abs_err_sweep=f"{sweep['shared']:.3e}",
           max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
@@ -913,7 +940,7 @@ def check_ssm_state(torch) -> None:
         del args, want_y, want_h
     torch.cuda.empty_cache()
     sweep = max(e for shape, e in errs.items() if shape in SSM_SHAPES)
-    phase("3/15 kernels", kernel="ssm_scan", state="h0_and_h_last",
+    phase("3/16 kernels", kernel="ssm_scan", state="h0_and_h_last",
           cases=len(errs), runs=runs, lanes="1,2,4",
           max_abs_err_sweep=f"{sweep:.3e}",
           max_abs_err_jamba_S4096=f"{errs[SSM_MAIN]:.3e}",
@@ -926,7 +953,7 @@ def phase_parity(torch) -> None:
     import numpy as np
     mistral = parity(torch, "mistral-nemo-12b", [np.array([0, 3, 10, 40])],
                      steps=6, prompt=(2, 9), new=(2, 6))
-    phase("4/15 parity", config="mistral-nemo-12b/SMOKE/fp32",
+    phase("4/16 parity", config="mistral-nemo-12b/SMOKE/fp32",
           logits_max_abs_err=f"{mistral:.3e}", tol="1e-4",
           engine_tokens="equal")
     # one position for every row, then ragged per-row positions: 40 steps
@@ -935,7 +962,7 @@ def phase_parity(torch) -> None:
     danube = parity(torch, "h2o-danube-1.8b",
                     [np.zeros(4, np.int64), np.array([0, 5, 11, 30])],
                     steps=40, prompt=(10, 21), new=(8, 14))
-    phase("4/15 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
+    phase("4/16 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
           cache_rows=16, steps="40_scalar_pos+40_ragged_pos",
           logits_max_abs_err=f"{danube:.3e}", tol="1e-4",
           engine_tokens="equal")
@@ -943,12 +970,12 @@ def phase_parity(torch) -> None:
     # engine's six requests through three slots reuse slots (F5)
     xlstm = parity(torch, "xlstm-350m", [np.zeros(4, np.int64)], steps=20,
                    prompt=(2, 9), new=(2, 6))
-    phase("4/15 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
+    phase("4/16 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
           logits_max_abs_err=f"{xlstm:.3e}", tol="1e-4",
           engine_tokens="equal_under_slot_reuse")
     for arch in GENERATE_PARITY:
         err = generate_parity(torch, arch)
-        phase("4/15 parity.generate", config=f"{arch}/SMOKE/fp32",
+        phase("4/16 parity.generate", config=f"{arch}/SMOKE/fp32",
               batch=2, prompt=21, steps=12,
               prefill_logits_max_abs_err=f"{err:.3e}", tol="1e-4",
               greedy_tokens="equal")
@@ -1060,7 +1087,7 @@ def phase_serve(torch) -> dict:
     run_launches = da.launches
     require(run_launches == cfg.num_layers * res["decode_steps"],
             f"run: {run_launches} launches for {res['decode_steps']} steps")
-    phase("5/15 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+    phase("5/16 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
           p99_ms=res["p99_ms"], served=res["served"],
           decode_steps=res["decode_steps"], launches=run_launches,
           wall_s=f"{wall:.1f}")
@@ -1095,7 +1122,7 @@ def phase_serve(torch) -> dict:
                                        device="cuda"), 100)
     require(tuple(logits.shape) == (8, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    phase("5/15 serve.engine", requests=len(reqs), decode_steps=eng.steps,
+    phase("5/16 serve.engine", requests=len(reqs), decode_steps=eng.steps,
           new_tokens=new, tokens_per_s=f"{new / wall:.1f}",
           wall_s=f"{wall:.2f}", launches=eng_launches,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -1145,7 +1172,7 @@ def phase_share(torch) -> int:
         off_ms = (res["oversold"] * horizon / res["offline_steps"] * 1e3
                   if share else None)
         # the SLO guard's eviction ends the run early: fewer served
-        phase("6/15 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
+        phase("6/16 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=requests,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -1225,7 +1252,7 @@ def phase_generate(torch) -> dict:
             "vocabulary")
         for k in total:
             total[k] += n[k]
-        phase("7/15 generate", config=f"{arch}/FULL/bf16",
+        phase("7/16 generate", config=f"{arch}/FULL/bf16",
               layers=cfg.num_layers, batch=B, prompt=S0, decode_steps=steps, new_tokens=B * (steps + 1),
               prefill_ms=f"{prefill_ms:.2f}",
               decode_ms_per_step=f"{(wall * 1e3 - prefill_ms) / steps:.2f}",
@@ -1252,7 +1279,7 @@ def phase_generate(torch) -> dict:
             require(res["train_steps_done"] == res["offline_steps"] + 2,
                     f"train steps {res['train_steps_done']} for "
                     f"{res['offline_steps']} offline steps")
-        phase("7/15 generate.serve", config="xlstm-350m/FULL/bf16",
+        phase("7/16 generate.serve", config="xlstm-350m/FULL/bf16",
               share=share, batch=4, requests=200, base_ms=res["base_ms"],
               p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
               served=res["served"], evicted=res["served"] < 200,
@@ -1306,13 +1333,13 @@ def phase_profile(torch) -> tuple[dict, object, object]:
         atol, rtol = CHECKSUM_TOL[name]
         require(abs(g - w) <= atol + rtol * abs(w),
                 f"{name}: checksum {g} on the card, {w} on the CPU")
-        phase("8/15 profile.exec", workload=name, device="cuda",
+        phase("8/16 profile.exec", workload=name, device="cuda",
               steps=rec.steps_executed,
               wall_ms_per_step=rec.wall_ms_per_step, checksum_card=g,
               checksum_cpu=w, tol=f"atol:{atol},rtol:{rtol}")
     require(got == want, "the card's matrix differs from the CPU-built one "
             "in a field other than the checksums")
-    phase("8/15 profile", suite="smoke", seed=0, pairs=len(card.pairs),
+    phase("8/16 profile", suite="smoke", seed=0, pairs=len(card.pairs),
           cells=sum(len(p["shares"]) for p in card.pairs), schema="clean",
           matrix="equal_to_cpu_but_checksums", launches=counts,
           wall_s=f"{wall:.2f}", cpu_matrix_s=f"{cpu_s:.2f}")
@@ -1327,7 +1354,7 @@ def phase_profile(torch) -> tuple[dict, object, object]:
             f"bad validation MAE {maes}")
     require(all(p[0]["w"].device.type == "cuda"
                 for p in pred.params_by_type.values()), "predictor not on card")
-    phase("8/15 profile.predictor", device="cuda",
+    phase("8/16 profile.predictor", device="cuda",
           epochs=len(hist["T4"]["val_mae"]),
           **{f"final_val_mae_{gpu}": m for gpu, m in maes.items()},
           seconds=f"{secs:.2f}")
@@ -1359,7 +1386,7 @@ def phase_train(torch) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    phase("9/15 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
+    phase("9/16 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
           params=cfg.param_count(), losses=losses, step_ms=ms,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     del params, state
@@ -1385,7 +1412,7 @@ def train_danube(torch) -> None:
     losses = out["losses"]
     require(out["steps_done"] == 5 and not out["interrupted"]
             and all(math.isfinite(v) for v in losses), f"train.run {out}")
-    phase("9/15 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
+    phase("9/16 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
           batch=8, seq=64, params=cfg.param_count(), losses=losses,
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -1430,7 +1457,7 @@ def offline_step_breakdown(torch) -> None:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     n = cfg.param_count()
-    phase("9/15 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
+    phase("9/16 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
           batch=4, seq=32, step_ms=[t * 1e3 for t in step_s[1:]],
           grad_ms=[(t - u) * 1e3 for t, u in zip(step_s[1:], update_s[1:])],
           adamw_ms=[u * 1e3 for u in update_s[1:]],
@@ -1474,7 +1501,7 @@ def checkpoint_roundtrip(torch) -> None:
     require(at == 2 and len(pairs) == 4 * len(tree[0]) + 1 and all(
         y.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
         for x, y in pairs), "restored checkpoint differs")
-    phase("9/15 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
+    phase("9/16 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
           leaves=len(pairs), step=at, restored_to="cuda", equal="bitwise")
 
 
@@ -1528,7 +1555,7 @@ def time_mla(torch) -> None:
     bound_ms, by = bound(nbytes, {"bf16": (2 * B * H * Skv * (dq + dv),
                                            PEAK_FLOPS["bfloat16"])})
     padded_ms = (2 * B * Skv * H * dq * 2) / PEAK_BYTES_S * 1e3
-    phase("10/15 timing", kernel="decode_attention", model="deepseek_mla",
+    phase("10/16 timing", kernel="decode_attention", model="deepseek_mla",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{H}_qk{dq}_v{dv}_padded_to_{dq}_bf16_"
           f"kvlen{Skv}",
           graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
@@ -1549,7 +1576,7 @@ def time_mla(torch) -> None:
     flops = 2 * B * H * visible * (dq + dv)
     nbytes = (2 * B * S * H * dq + 2 * B * S * H * dv) * 2
     bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
-    phase("10/15 timing", kernel="flash_attention", model="deepseek_mla",
+    phase("10/16 timing", kernel="flash_attention", model="deepseek_mla",
           shape=f"B{B}_S{S}_H{H}_Hk{H}_qk{dq}_v{dv}_padded_to_{dq}_bf16_"
           "causal", bf16_tile=fa.tile_plan(dq),
           graph_ms=graph_ms(torch, lambda: fa.flash_attention_cuda(
@@ -1623,7 +1650,7 @@ def time_capped(torch) -> None:
         q, k, v, lens, cap))
     lib = library_line(torch, lambda: flex_capped(torch, q, k, v, cap, False),
                        want)
-    phase("10/15 timing", kernel="decode_attention", softcap=cap,
+    phase("10/16 timing", kernel="decode_attention", softcap=cap,
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
           graph_ms_free=ms["free"], graph_ms_capped=ms["capped"],
           capped_over_free=f"{sum(ms['capped']) / sum(ms['free']):.4f}",
@@ -1646,7 +1673,7 @@ def time_capped(torch) -> None:
     lib = library_line(torch, lambda: flex_capped(torch, q, k, v, cap,
                                                   causal), want)
     B, Sq, Skv, H, Hk, d = shape[:6]
-    phase("10/15 timing", kernel="flash_attention", softcap=cap,
+    phase("10/16 timing", kernel="flash_attention", softcap=cap,
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal",
           graph_ms_free=ms["free"], graph_ms_capped=ms["capped"],
           capped_over_free=f"{sum(ms['capped']) / sum(ms['free']):.4f}",
@@ -1717,7 +1744,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
         da._library(), dev, q.dtype, H, Hk, d))
     call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
-    phase("10/15 timing", kernel="decode_attention",
+    phase("10/16 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
           ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
           splits=ns, split_len=split_len)
@@ -1731,7 +1758,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - da.decode_attention_plain(
         q, k, v, lens).float()).abs().max())
     library_ms, library_events_ms = graph_ms(torch, sdpa), time_ms(torch, sdpa)
-    phase("10/15 timing", kernel="decode_attention",
+    phase("10/16 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
           ms=ms, events_ms=events_ms, plain_ms=plain_ms,
           library_ms=library_ms, library_events_ms=library_events_ms,
@@ -1745,7 +1772,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
                                          ("jamba", JAMBA_DECODE[1])):
         q2, k2, v2, lens2, sdpa2, bound2, by2 = decode_inputs(
             torch, gen, b, skv, h, hk, dh)
-        phase("10/15 timing", kernel="decode_attention", model=name,
+        phase("10/16 timing", kernel="decode_attention", model=name,
               shape=f"B{b}_Skv{skv}_H{h}_Hk{hk}_d{dh}_bf16_kvlen{skv}",
               graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
                   q2, k2, v2, lens2)),
@@ -1804,7 +1831,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             ptxas[f"wgmma_forward_{dp_bk}"] = (
                 f"regs:{r.get('registers')},spill_bytes:"
                 f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/15 timing", kernel="flash_attention", design="wgmma",
+    phase("10/16 timing", kernel="flash_attention", design="wgmma",
           bf16_tile=fa.tile_plan(d), **ptxas)
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v, sdpa, bound_ms, by, flops, nbytes = flash_inputs(torch, gen,
@@ -1817,7 +1844,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - fa.flash_attention_cuda(
         q, k, v, causal=causal).float()).abs().max())
     library_ms = time_ms(torch, sdpa)
-    phase("10/15 timing", kernel="flash_attention",
+    phase("10/16 timing", kernel="flash_attention",
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal", ms=ms,
           plain_ms=plain_ms, library_ms=library_ms,
           library_vs_kernel_max_abs_diff=f"{library_err:.3e}",
@@ -1829,7 +1856,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
         q2, k2, v2, sdpa2, bound2, by2, flops2, nbytes2 = flash_inputs(
             torch, gen, shape)
         B2, Sq2, Skv2, H2, Hk2, d2, causal2, window2 = shape
-        phase("10/15 timing", kernel="flash_attention", model=name,
+        phase("10/16 timing", kernel="flash_attention", model=name,
               shape=f"B{B2}_Sq{Sq2}_Skv{Skv2}_H{H2}_Hk{Hk2}_d{d2}_bf16_"
               + ("causal" if causal2 else "full")
               + (f"_w{window2}" if window2 else ""),
@@ -1868,7 +1895,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         ptxas[f"N{n}_L{lanes}"] = (
             f"regs:{r.get('registers')},spill_bytes:"
             f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/15 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
+    phase("10/16 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
     shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
@@ -1879,7 +1906,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
         events_ms = time_ms(torch, call)
         clock = sm_clock()
-        phase("10/15 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+        phase("10/16 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
               ms=events_ms, sm_clock_mhz=clock,
               graph_ms=graph_ms(torch, call))
     plan = ss.lane_plan(B, di, N,
@@ -1898,7 +1925,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("10/15 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+    phase("10/16 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
           channels_per_block=plan.channels, blocks=plan.blocks,
           busiest_sm_channels=plan.busiest,
           mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
@@ -1938,7 +1965,7 @@ def time_ssm_state(torch, args: tuple, bound_ms: float, by: str,
     ss.launches = saved                  # launches to time do not count
     state_bytes = 2 * B * di * N * 4
     pct = 100 * (min(times["h0_h_last"]) / min(times["none"]) - 1)
-    phase("10/15 timing", kernel="ssm_scan", shape=f"B{B}_S{S}_di{di}_N{N}"
+    phase("10/16 timing", kernel="ssm_scan", shape=f"B{B}_S{S}_di{di}_N{N}"
           "_fp32", state="none|h_last|h0_h_last", turns=json.dumps(times),
           graph_ms_none=min(times["none"]),
           graph_ms_h_last=min(times["h_last"]),
@@ -2031,7 +2058,6 @@ def fleet_hooks(timed: TimedPredictor):
 def fleet_run(torch, policy, predictor, engine: str, **kw) -> dict:
     """One `ClusterSim.run()` with its wall time, phase split and the
     predictor's rows and card ms per scheduling round."""
-    import dataclasses
 
     from repro_torch.core.simulator import ClusterSim, SimConfig
     timed = TimedPredictor(predictor) if predictor is not None else None
@@ -2085,7 +2111,7 @@ def fleet_line(name: str, engine: str, run: dict, **extra) -> None:
                       predictor_ms_max=f"{max(ms):.3f}")
     fields["phases_s"] = json.dumps({k: round(v, 3) for k, v in
                                      sorted(run["phases_s"].items())})
-    phase(f"11/15 fleet.{name}", engine=engine, **fields, **extra)
+    phase(f"11/16 fleet.{name}", engine=engine, **fields, **extra)
 
 
 def engine_profile(torch, sim, ticks: int = 30) -> None:
@@ -2119,7 +2145,7 @@ def engine_profile(torch, sim, ticks: int = 30) -> None:
                       idle_share=f"{1.0 - busy / wall_ms:.3f}")
     else:
         fields.update(device_busy_ms="not measured (no device events)")
-    phase("11/15 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
+    phase("11/16 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
           **fields)
 
 
@@ -2168,7 +2194,7 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
               for t, f, _ in calls)
     require(err <= PREDICTOR_TOL,
             f"card predictions off the CPU's by {err} > {PREDICTOR_TOL}")
-    phase("11/15 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
+    phase("11/16 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
           gpu_types=sorted({str(t) for t, _, _ in calls}), max_abs_err=err,
           tol=PREDICTOR_TOL, matmul_precision=repr(
               torch.get_float32_matmul_precision()),
@@ -2205,6 +2231,78 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
         require(events.get(key, 0) > 0, f"no {key} under heavy faults")
     fleet_line("faults", "numpy==torch", faults["torch"], events=events,
                overlimit_devices=readmits, lockstep_ticks=n_ticks)
+    fleet_legacy(torch)
+
+
+# tests/test_sim_parity.py's configuration: the per-device reference engine
+# against the vectorized one, under its rule
+LEGACY = dict(n_devices=50, horizon_s=4 * 3600.0, tick_s=30.0, trace="B",
+              seed=12345)
+
+
+def approx(got: float, want: float, rel: float, abs_: float = 0.0) -> bool:
+    """pytest.approx's rule: |got - want| <= max(rel * |want|, abs_)."""
+    return abs(got - want) <= max(rel * abs(want), abs_)
+
+
+def legacy_problems(vec, ref) -> list:
+    """The fields of SimResults where `vec` breaks tests/test_sim_parity.py's
+    rule against `ref`, taken from the dataclass so that no field escapes
+    it: ints (the counts) and strings equal, floats rel 1e-9 / abs 1e-12
+    but p99 rel 0.02 / abs 0.2 (binned against interpolated), and the
+    timeline's series: the same keys, "t" equal, the others rel 1e-9."""
+    bad = []
+    for field in dataclasses.fields(ref):
+        kind = field.type if isinstance(field.type, str) \
+            else field.type.__name__
+        got, want = getattr(vec, field.name), getattr(ref, field.name)
+        if field.name == "p99_latency_ms":
+            ok = approx(got, want, 0.02, 0.2)
+        elif kind == "float":
+            ok = approx(got, want, 1e-9, 1e-12)
+        elif kind == "dict":
+            ok = sorted(got) == sorted(want) and got["t"] == want["t"]
+            if ok:
+                bad += [f"{field.name}.{k}" for k in sorted(want)
+                        if len(got[k]) != len(want[k]) or not all(
+                            approx(x, y, 1e-9)
+                            for x, y in zip(got[k], want[k]))]
+        else:
+            ok = got == want
+        if not ok:
+            bad.append(field.name)
+    return bad
+
+
+def fleet_legacy(torch) -> None:
+    """`muxflow` on the torch tick engine on the card against the port's
+    per-device `LegacyClusterSim`, under one predictor trained on the card
+    as tests/test_sim_parity.py trains its own."""
+    from repro_torch.core.predictor import build_speed_predictor
+    from repro_torch.core.simulator import ClusterSim, SimConfig
+    from repro_torch.core.simulator_legacy import LegacyClusterSim
+    pred = build_speed_predictor(gpu_types=("T4", "A10"), n=500, epochs=25)
+    t = time.perf_counter()
+    ref = LegacyClusterSim(SimConfig(policy="muxflow", **LEGACY), pred).run()
+    legacy_s = time.perf_counter() - t
+    t = time.perf_counter()
+    vec = ClusterSim(SimConfig(policy="muxflow", engine="torch", **LEGACY),
+                     pred).run()
+    torch.cuda.synchronize()
+    torch_s = time.perf_counter() - t
+    bad = legacy_problems(vec, ref)
+    require(not bad, f"the torch engine breaks the parity rule against the "
+            f"legacy engine in {bad}")
+    require(ref.n_finished > 0 and ref.n_jobs > 0, "no job finished")
+    phase("11/16 fleet.legacy", policy="muxflow", engines="torch~legacy",
+          n_devices=LEGACY["n_devices"], horizon_h=LEGACY["horizon_s"] / 3600,
+          trace=LEGACY["trace"], seed=LEGACY["seed"],
+          n_finished=ref.n_finished, evictions=ref.evictions,
+          oversold_gpu=ref.oversold_gpu, gpu_util=ref.gpu_util,
+          p99_ms=f"{vec.p99_latency_ms}~{ref.p99_latency_ms}",
+          rule="counts==,floats rel1e-9 abs1e-12,p99 rel0.02 abs0.2,"
+               "timelines rel1e-9",
+          legacy_s=f"{legacy_s:.2f}", torch_s=f"{torch_s:.2f}")
 
 
 # phase 12: `repro`'s flagship campaign at the paper's fleet, 30 s ticks,
@@ -2326,7 +2424,7 @@ def phase_control(torch) -> dict:
     require(all(p[0]["w"].device.type == "cuda"
                 for p in predictor.params_by_type.values()),
             "the predictor is not on the card")
-    phase("12/15 control.predictor", device="cuda", policy=sc.policy,
+    phase("12/16 control.predictor", device="cuda", policy=sc.policy,
           samples=sc.predictor_samples, epochs=sc.predictor_epochs,
           seconds=f"{time.perf_counter() - t:.2f}")
     runs = {engine: control_run(torch, sc, predictor, engine)
@@ -2343,7 +2441,7 @@ def phase_control(torch) -> dict:
             and math.isfinite(f["propagation_rate"]),
             f"implausible campaign report {s}")
     for engine, run in runs.items():
-        phase("12/15 control.diurnal-mixed", engine=engine,
+        phase("12/16 control.diurnal-mixed", engine=engine,
               device=("cuda" if engine == "torch" else "host"),
               n_devices=sc.n_devices, hours=sc.hours, tick_s=sc.tick_s,
               wall_s=f"{run['head_s'] + run['tail_s']:.2f}",
@@ -2351,7 +2449,7 @@ def phase_control(torch) -> dict:
               split_s=json.dumps({k: round(v, 3) for k, v in
                                   sorted(run["split_s"].items())}),
               **run.get("profiled", {}))
-    phase("12/15 control.report", scenario=sc.name, engines="numpy==torch",
+    phase("12/16 control.report", scenario=sc.name, engines="numpy==torch",
           bytes=len(canon["numpy"]), schema="clean",
           gpu_util=s["gpu_util"], sm_activity=s["sm_activity"],
           oversold_gpu=s["oversold_gpu"], avg_slowdown=s["avg_slowdown"],
@@ -2372,7 +2470,7 @@ def phase_control(torch) -> dict:
             f"(phase 8's matrix is not reused): {counts}")
     require(not check_schema(rep) and rep["sim"]["n_finished"] > 0,
             "calibrated: bad report")
-    phase("12/15 control.calibrated", n_devices=rep["scenario"]["n_devices"],
+    phase("12/16 control.calibrated", n_devices=rep["scenario"]["n_devices"],
           matrix="built on the card", launches=counts,
           gpu_util=rep["sim"]["gpu_util"],
           avg_slowdown=rep["sim"]["avg_slowdown"],
@@ -2384,10 +2482,10 @@ def phase_control(torch) -> dict:
             "serving-slo: bad report")
     for svc, row in sorted(serving["services"].items()) + [
             ("total", serving["total"])]:
-        phase("12/15 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
+        phase("12/16 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
               p99_ms=row["p99_ms"], slo_attainment=row["slo_attainment"],
               shed=row["shed"], arrived=row["arrived"])
-    phase("12/15 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
+    phase("12/16 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
           hours=rep["scenario"]["hours"], wall_s=f"{wall:.2f}")
 
     rep, wall = run_cli(torch, ["sim", "--scenario", "chaos-storm"])
@@ -2395,7 +2493,7 @@ def phase_control(torch) -> dict:
     require(not check_schema(rep) and res["injected"] > 0
             and res["unmatched"] == 0,
             f"chaos-storm: unpaired faults {res['unmatched_by_kind']}")
-    phase("12/15 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
+    phase("12/16 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
           injected=res["injected"], recovered=res["recovered"],
           unmatched=res["unmatched"],
           injected_by_kind=json.dumps(res["injected_by_kind"]),
@@ -2528,11 +2626,11 @@ def phase_durable(torch, control: dict) -> None:
         for line in err.splitlines():
             if line.startswith("[phases]") and "phase" not in line[9:15]:
                 name, *vals = line[9:].split()
-                phase("13/15 durable.phases", phase=name, wall_s=vals[0],
+                phase("13/16 durable.phases", phase=name, wall_s=vals[0],
                       **({"share": vals[1], "calls": vals[2]}
                          if len(vals) == 3 else {}))
         obs = rep["obs"]
-        phase("13/15 durable.run", scenario=D["scenario"],
+        phase("13/16 durable.run", scenario=D["scenario"],
               n_devices=D["n_devices"], hours=rep["scenario"]["hours"],
               engine="torch", device="cuda", ticks=n,
               wall_s=f"{wall:.2f}", ms_per_tick=f"{wall * 1e3 / n:.3f}",
@@ -2543,7 +2641,7 @@ def phase_durable(torch, control: dict) -> None:
               parts_s=json.dumps({k: round(v, 3)
                                   for k, v in sorted(parts.s.items())}),
               schema="clean", prom_lint="clean", manifest="OK")
-        phase("13/15 durable.wal", backend="jsonl", events=events,
+        phase("13/16 durable.wal", backend="jsonl", events=events,
               events_per_s=f"{events / wall:.1f}",
               append_us=f"{parts.s['wal_append'] * 1e6 / events:.2f}",
               metrics_rows=obs["metrics"]["rows"],
@@ -2551,7 +2649,7 @@ def phase_durable(torch, control: dict) -> None:
               trace_rows=obs["trace"]["rows"],
               incidents=rep["incidents"]["total"])
         n_snap = n // every - (1 if n % every == 0 else 0)
-        phase("13/15 durable.snapshots", taken=n_snap, kept=len(snaps),
+        phase("13/16 durable.snapshots", taken=n_snap, kept=len(snaps),
               every_ticks=every,
               bytes_each=json.dumps(dict(zip(snaps, snap_bytes))),
               ms_each=f"{parts.s['snapshot'] * 1e3 / n_snap:.1f}")
@@ -2619,7 +2717,7 @@ def phase_durable(torch, control: dict) -> None:
                                                      "manifest.json")])
         require(rc == 0, f"resumed manifest: {verr}")
         live_s = tick_at[n] - tick_at[origin]
-        phase("13/15 durable.resume", killed_at_tick=kill,
+        phase("13/16 durable.resume", killed_at_tick=kill,
               resumed_from_tick=origin, ticks_replayed=n - origin,
               killed_run_s=f"{killed_s:.2f}",
               resume_process_s=f"{resume_s:.2f}",
@@ -2641,8 +2739,8 @@ def phase_durable(torch, control: dict) -> None:
                 and doc["devices"]["total"] == D["n_devices"],
                 f"inspect: {doc['tick']}, {doc['devices']}")
         for line in err.strip().splitlines():
-            phase("13/15 durable.inspect", line=repr(line))
-        phase("13/15 durable.inspect", tick=D["inspect_tick"],
+            phase("13/16 durable.inspect", line=repr(line))
+        phase("13/16 durable.inspect", tick=D["inspect_tick"],
               wall_s=f"{wall:.2f}")
 
         # 4. serve durable on both engines: every artifact byte-equal
@@ -2662,7 +2760,7 @@ def phase_durable(torch, control: dict) -> None:
                 "serving-slo's artifacts differ between the engines")
         with open(os.path.join(work, "serve-torch", "report.json")) as f:
             rep = json.load(f)
-        phase("13/15 durable.serve", scenario="serving-slo",
+        phase("13/16 durable.serve", scenario="serving-slo",
               n_devices=rep["scenario"]["n_devices"],
               hours=rep["scenario"]["hours"], engines="numpy==torch",
               files=",".join(sorted(out["torch"][0])),
@@ -2685,11 +2783,11 @@ def phase_durable(torch, control: dict) -> None:
                 and names.get("recovery-byte-identity"),
                 f"chaos: exit code {rc}, invariants {names}")
         for inv in verdict["invariants"]:
-            phase("13/15 durable.chaos", invariant=inv["name"],
+            phase("13/16 durable.chaos", invariant=inv["name"],
                   result="PASS" if inv["ok"] else "FAIL",
                   detail=repr(inv["detail"]))
         res = verdict["resilience"]
-        phase("13/15 durable.chaos", scenario="chaos-storm", engine="torch",
+        phase("13/16 durable.chaos", scenario="chaos-storm", engine="torch",
               device="cuda", injected=res["injected"],
               recovered=res["recovered"],
               store_faults=res["ladder"]["store_faults"],
@@ -2797,7 +2895,7 @@ def zoo_parity(torch, arch: str) -> float:
 
 def zoo_generate(torch, arch: str, B: int, S: int, steps: int,
                  overrides: dict | None = None, params=None,
-                 label: str = "14/15 zoo.generate") -> dict:
+                 label: str = "14/16 zoo.generate") -> dict:
     """`greedy_generate` at full width in bf16 (the FULL config with
     `overrides`, a cut of its depth or a knob, if any; on `params`, or
     weights drawn from seed 0) with its prefill timed alone first; the
@@ -2891,7 +2989,7 @@ def zoo_serve(torch) -> int:
                     f"train steps {res['train_steps_done']} for "
                     f"{res['offline_steps']} offline steps")
         total += n
-        phase("14/15 zoo.serve", config=f"{arch}/FULL/bf16", share=share,
+        phase("14/16 zoo.serve", config=f"{arch}/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=SERVE_REQUESTS,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -2944,7 +3042,7 @@ def zoo_engine(torch, cfg, params, kv_capacity: int = 4096) -> int:
     require(all(len(r.output) == r.max_new_tokens for r in reqs) and all(
         0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
         "engine output has the wrong length or ids out of the vocabulary")
-    phase("14/15 zoo.engine", config=f"{cfg.name}/FULL/bf16",
+    phase("14/16 zoo.engine", config=f"{cfg.name}/FULL/bf16",
           layers=cfg.num_layers, slots=8, kv_capacity=kv_capacity,
           requests=len(reqs), decode_steps=eng.steps, new_tokens=new,
           tokens_per_s=f"{new / wall:.1f}", wall_s=f"{wall:.2f}",
@@ -3009,7 +3107,7 @@ def zoo_eval(torch, cfg, params, B: int, S: int, **fields) -> None:
             f"{cfg.name}: loss_fn {loss}, {ce} against eval step {got}")
     p = cfg.param_count()
     # bf16 weights and gradients, fp32 m and v (the port's AdamW)
-    phase("14/15 zoo.train", config=f"{cfg.name}/FULL/bf16",
+    phase("14/16 zoo.train", config=f"{cfg.name}/FULL/bf16",
           layers=cfg.num_layers, via="make_eval_step", batch=B, seq=S,
           loss=loss, ce=ce, moe_aux=aux, step_ms=f"{ms:.2f}",
           **{k: f"{v:.2f}" for k, v in fields.items()},
@@ -3081,7 +3179,7 @@ def zoo_train(torch) -> None:
     wall = time.perf_counter() - t
     require(out["steps_done"] == 3 and all(
         math.isfinite(v) for v in out["losses"]), f"train.run {out}")
-    phase("14/15 zoo.train", config=f"{arch}/FULL/bf16", via="launch.train",
+    phase("14/16 zoo.train", config=f"{arch}/FULL/bf16", via="launch.train",
           optimizer="AdamW", batch=B, seq=S, losses=out["losses"],
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -3116,7 +3214,7 @@ def zoo_train(torch) -> None:
         if cfg.num_experts:
             require(all(m["moe_aux"] > 0 for m in metrics),
                     f"{arch}: no MoE aux loss {metrics}")
-        phase("14/15 zoo.train", config=f"{arch}/FULL/bf16",
+        phase("14/16 zoo.train", config=f"{arch}/FULL/bf16",
               via="make_train_step", optimizer="AdamW", batch=B, seq=S,
               source_frames=ZOO2_FRAMES if cfg.enc_layers else 0,
               metrics=metrics, step_ms=ms,
@@ -3139,7 +3237,7 @@ def zoo_train(torch) -> None:
             f"{arch}: eval {got}")
     n = cfg.param_count()
     # bf16 weights and gradients, fp32 m and v (the port's AdamW)
-    phase("14/15 zoo.train", config=f"{arch}/FULL/bf16", via="make_eval_step",
+    phase("14/16 zoo.train", config=f"{arch}/FULL/bf16", via="make_eval_step",
           batch=1, patches=cfg.num_patches, seq=1024,
           loss=float(got["loss"]), ce=float(got["ce"]), step_ms=ms,
           adamw_state_gb=f"{12 * n / 1e9:.1f}",
@@ -3168,7 +3266,7 @@ def phase_zoo(torch) -> dict:
 
     for arch in [g[0] for g in ZOO2_GENERATE] + [DEEPSEEK, JAMBA]:
         err = timed(arch, zoo_parity, torch, arch)
-        phase("14/15 zoo.parity", config=f"{arch}/SMOKE/fp32", batch=2,
+        phase("14/16 zoo.parity", config=f"{arch}/SMOKE/fp32", batch=2,
               prompt=21, decode_steps=20, greedy_steps=12,
               logits_max_abs_err=f"{err:.3e}", tol="1e-4",
               greedy_tokens="equal")
@@ -3176,7 +3274,7 @@ def phase_zoo(torch) -> dict:
     for arch in ("granite-moe-1b-a400m", DEEPSEEK, JAMBA):
         err = timed(arch, parity, torch, arch, [np.array([0, 3, 10, 40])], 6,
                     (2, 9), (2, 6))
-        phase("14/15 zoo.parity", config=f"{arch}/SMOKE/fp32",
+        phase("14/16 zoo.parity", config=f"{arch}/SMOKE/fp32",
               decode="ragged_pos", logits_max_abs_err=f"{err:.3e}",
               tol="1e-4", engine_tokens="equal")
     total = {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
@@ -3192,7 +3290,7 @@ def phase_zoo(torch) -> dict:
     for arch, fn in ((DEEPSEEK, zoo_deepseek), (JAMBA, zoo_jamba)):
         for k, n in timed(arch, fn, torch).items():
             total[k] += n
-    phase("14/15 zoo.seconds", **{a: f"{t:.1f}" for a, t in seconds.items()})
+    phase("14/16 zoo.seconds", **{a: f"{t:.1f}" for a, t in seconds.items()})
     return total
 
 
@@ -3293,7 +3391,7 @@ def knobs_train(torch) -> None:
     require(out["steps_done"] == steps and all(
         math.isfinite(x) for x in out["losses"]), f"train.run {out}")
     require(calls, "the attention was not streamed over KV chunks")
-    phase("15/15 knobs.train", config="h2o-danube-1.8b/FULL/bf16",
+    phase("15/16 knobs.train", config="h2o-danube-1.8b/FULL/bf16",
           via="launch.train", optimizer="AdamW", batch=B, seq=S,
           steps=steps, remat=True, attention="chunked",
           attention_chunked_calls=len(calls), losses=out["losses"],
@@ -3311,7 +3409,6 @@ def knobs_remat(torch) -> None:
     chunk skipped, as the model runs, and with every chunk computed, as
     `repro` does; the loss equal, the gradients within the same limit;
     both times."""
-    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -3332,7 +3429,7 @@ def knobs_remat(torch) -> None:
     require(float(lon) == float(loff), f"remat loss {float(lon)} against "
             f"{float(loff)} without")
     require(rel <= 2e-5, f"remat gradients {rel:.3e} off by relative norm")
-    phase("15/15 knobs.remat", config="h2o-danube-1.8b/FULL/bf16", batch=B,
+    phase("15/16 knobs.remat", config="h2o-danube-1.8b/FULL/bf16", batch=B,
           seq=S, loss=float(lon), loss_equal=True,
           grads_rel_norm=f"{rel:.3e}", tol="2e-5",
           ms_remat_on=f"{ms_on:.1f}", ms_remat_off=f"{ms_off:.1f}",
@@ -3365,7 +3462,7 @@ def knobs_remat(torch) -> None:
     require(float(ls) == float(la), f"skipping chunks: loss {float(ls)} "
             f"against {float(la)} over every chunk")
     require(rel <= 2e-5, f"skipping chunks: gradients {rel:.3e} off")
-    phase("15/15 knobs.skip", config="h2o-danube-1.8b/FULL/bf16", batch=B,
+    phase("15/16 knobs.skip", config="h2o-danube-1.8b/FULL/bf16", batch=B,
           seq=S, remat=True, loss=float(ls), loss_equal=True,
           grads_rel_norm=f"{rel:.3e}", tol="2e-5",
           kv_chunk_calls_skipping=calls[True],
@@ -3386,7 +3483,6 @@ def knobs_gemma(torch) -> dict:
     gap comes from), the same without the cap, the largest score the
     decode attention meets and how far the cap moves the logits.  Returns
     the generate run's launches."""
-    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
@@ -3403,7 +3499,7 @@ def knobs_gemma(torch) -> dict:
     B, S, steps = KNOBS_GENERATE
     n = zoo_generate(torch, arch, B, S, steps,
                      overrides={"softcap": GEMMA_CAP}, params=params,
-                     label="15/15 knobs.generate")
+                     label="15/16 knobs.generate")
     require(n == {"flash_attention": 28, "decode_attention": 868,
                   "ssm_scan": 0}, f"gemma-7b capped launches {n}")
     batch = zoo_batch(torch, cfg, B, S,
@@ -3471,7 +3567,7 @@ def knobs_gemma(torch) -> dict:
     # random weights the scores stay far below 50, and the cap moves the
     # logits about as far as the layers' rounding does, within the limit
     # (capped_vs_uncapped); phase 3 holds the cap, at scores past it
-    phase("15/15 knobs.generate", config=f"{arch}/FULL/bf16",
+    phase("15/16 knobs.generate", config=f"{arch}/FULL/bf16",
           softcap=GEMMA_CAP, step="first_decode", against="plain_versions",
           logits_rel_norm=f"{rel:.3e}", tol="2e-2",
           uncapped_logits_rel_norm=f"{rels[None]:.3e}",
@@ -3491,7 +3587,7 @@ def knobs_gemma(torch) -> dict:
     (lf, msf, pf), (lu, msu, pu) = evals[True], evals[False]
     require(math.isfinite(lf) and abs(lf - lu) <= 1e-3 * abs(lu),
             f"fused eval loss {lf} against {lu}")
-    phase("15/15 knobs.eval", config=f"{arch}/FULL/bf16", softcap=GEMMA_CAP,
+    phase("15/16 knobs.eval", config=f"{arch}/FULL/bf16", softcap=GEMMA_CAP,
           batch=B, seq=S, attention="chunked", loss_fused=lf,
           loss_unfused=lu, rel_diff=f"{abs(lf - lu) / abs(lu):.3e}",
           tol="1e-3", ms_fused=f"{msf:.1f}", ms_unfused=f"{msu:.1f}",
@@ -3508,7 +3604,6 @@ def knobs_gemma_cut(torch) -> None:
     gradients at B1 x 8192 with the cap, the fused loss and remat against
     the same step unfused (1e-3 relative, 2e-2 by relative norm), then one
     AdamW step fused."""
-    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, make_train_step
@@ -3533,7 +3628,7 @@ def knobs_gemma_cut(torch) -> None:
     (_, _, m), ms, peak = timed_run(torch, make_train_step(cfg, opt), params,
                                     state, batch)
     require(math.isfinite(float(m["loss"])), f"train step {m}")
-    phase("15/15 knobs.train", config=f"{arch}/FULL/bf16",
+    phase("15/16 knobs.train", config=f"{arch}/FULL/bf16",
           layers=KNOBS_CUT, params=cfg.param_count(), softcap=GEMMA_CAP,
           remat=True, batch=B, seq=S, loss_fused=lf, loss_unfused=lu,
           loss_rel_diff=f"{abs(lf - lu) / abs(lu):.3e}", loss_tol="1e-3",
@@ -3563,8 +3658,200 @@ def phase_knobs(torch) -> dict:
     timed("danube_remat_2048_skip_8192", knobs_remat, torch)
     n = timed("gemma_capped", knobs_gemma, torch)
     timed("gemma_cut_train", knobs_gemma_cut, torch)
-    phase("15/15 knobs.seconds", **seconds)
+    phase("15/16 knobs.seconds", **seconds)
     return n
+
+
+# phase 16: the example ports.  `torch_serve_multiplex` at full width in a
+# child process, with its requests cut from the original's 150 so that its
+# multiplexed run takes 10-15 s (the horizon grows by 1.2 offline steps,
+# 0.47-0.67 s on the card, a request, and the signal lands at half of it);
+# `torch_train_lm` at 40 steps
+EXAMPLES = os.path.join(ROOT, "examples")
+EXAMPLE_REQUESTS = 35
+EXAMPLE_TRAIN_STEPS = 40
+def serve_child(n_req: int) -> None:
+    """The child of `examples_serve`: `torch_serve_multiplex` FULL on the
+    card, with its set-up split into parts (each between two synchronizes:
+    the imports, the CUDA context, each model's weight init, the AdamW
+    moments, the first decode and the first train step), then its result,
+    the split and the decode kernel's launches as one JSON line."""
+    t = time.perf_counter()
+    sys.path[:0] = [SRC, EXAMPLES]
+    import torch
+    split = {"import_torch": time.perf_counter() - t}
+    t = time.perf_counter()
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    if not _build.library_path("decode_attention").exists():
+        sys.exit("decode_attention is not built")
+    import torch_serve_multiplex as example
+    split["import_example"] = time.perf_counter() - t
+    t = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    split["cuda_context"] = time.perf_counter() - t
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return call
+
+    def first_call_timed(name, make):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+            calls = [timed(name, step)]
+            return lambda *a, **k: (calls.pop() if calls else step)(*a, **k)
+        return made
+
+    init_params = example.init_params
+    example.init_params = lambda gen, cfg: timed(
+        f"init_params {cfg.name}", init_params)(gen, cfg)
+    example.AdamW.init = timed("adamw_init", example.AdamW.init)
+    example.make_decode_step = first_call_timed(
+        "first_decode", example.make_decode_step)
+    example.make_train_step = first_call_timed(
+        "first_train_step", example.make_train_step)
+    da.launches = 0
+    t = time.perf_counter()
+    out = example.main(smoke=False, n_req=n_req, device="cuda")
+    out["main_s"] = time.perf_counter() - t
+    out["split_s"] = split
+    out["launches"] = da.launches
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(json.dumps(out), flush=True)
+
+
+def load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_serve() -> int:
+    """`torch_serve_multiplex` at full width in a child process: the SIGINT
+    its timer sends is its own.  Returns the decode kernel's launches."""
+    from repro_torch.kernels import _build
+    lib = _build.library_path("decode_attention")
+    built_at = lib.stat().st_mtime_ns
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke; "
+         f"chip_smoke.serve_child({EXAMPLE_REQUESTS})"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    for line in proc.stdout.splitlines()[:-1]:
+        print(f"    | {line}", flush=True)
+    require(proc.returncode == 0, f"serve_multiplex exited "
+            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    require(lib.stat().st_mtime_ns == built_at,
+            "the child rebuilt the decode kernel")
+    out = json.loads(proc.stdout.splitlines()[-1])
+    require(out["smoke"] is False and out["n_req"] == EXAMPLE_REQUESTS,
+            "not the full-width run")
+    require(out["triggered"] == "sigint", "the SIGINT did not land: "
+            f"run {out['run_wall_s']:.2f} s of wall against a timer at half "
+            f"the {out['horizon_s']:.2f} s horizon")
+    require(out["frozen"] is True, "offline launches not frozen")
+    require(out["checkpoint_step"] is not None and out["releases"] == 1,
+            f"checkpoint step {out['checkpoint_step']}, "
+            f"{out['releases']} releases")
+    require(out["offline_steps_after_signal"] == 0,
+            f"{out['offline_steps_after_signal']} offline steps after the "
+            "signal")
+    require(out["online_steps_after_signal"] >= 1 or out["evicted"],
+            "the online side served nothing after the signal")
+    require(out["launches"] == 24 * out["decode_calls"],
+            f"{out['launches']} decode launches for {out['decode_calls']} "
+            "decode calls of 24 layers")
+    phase("16/16 examples.serve_multiplex",
+          config="h2o-danube-1.8b/FULL/bf16+granite-moe-1b-a400m/FULL/bf16",
+          batch=8, capacity=128, n_req=out["n_req"],
+          cut=f"n_req 150->{EXAMPLE_REQUESTS}", base_ms=out["base_ms"],
+          offline_step_ms=out["offline_step_ms"], p50_ms=out["p50_ms"],
+          p99_ms=out["p99_ms"], served=out["served"],
+          offline_steps=out["offline_steps"], duty=out["offline_duty"],
+          oversold=out["oversold"], evicted=out["evicted"],
+          slo_violations=out["slo_violations"],
+          signal=out["triggered"], frozen=out["frozen"],
+          signal_step=out["checkpoint_step"],
+          signal_wall_s=f"{out['signal_wall_s']:.2f}",
+          online_steps_after_signal=out["online_steps_after_signal"],
+          offline_steps_after_signal=out["offline_steps_after_signal"],
+          releases=out["releases"], horizon_s=f"{out['horizon_s']:.2f}",
+          run_wall_s=f"{out['run_wall_s']:.2f}",
+          setup_s=f"{out['main_s'] - out['run_wall_s']:.2f}",
+          split_s=json.dumps({k: round(v, 3)
+                              for k, v in out["split_s"].items()}),
+          decode_calls=out["decode_calls"], launches=out["launches"],
+          peak_mem_gib=f"{out['peak_mem_gib']:.2f}",
+          child_wall_s=f"{wall:.1f}")
+    return out["launches"]
+
+
+def examples_quickstart(torch) -> None:
+    """`torch_quickstart` on the card: the predictor trained there, then
+    Algorithm 1's plan."""
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = load_example("torch_quickstart").main()
+    torch.cuda.synchronize()
+    plan = out["plan"]
+    require(len(plan) == 4 and len({a[0] for a in plan}) == 4
+            and sorted(a[1] for a in plan) == [0, 1, 2, 3],
+            f"not a matching of the four jobs: {plan}")
+    require(all(0.0 < a[3] <= 1.0 and 0.0 < a[2] <= 1.0 for a in plan)
+            and math.isclose(out["total"], sum(a[3] for a in plan)),
+            f"implausible plan {plan}")
+    phase("16/16 examples.quickstart", device="cuda",
+          plan=json.dumps([[a[0], a[1], round(a[2], 3), round(a[3], 4)]
+                           for a in plan]),
+          total=f"{out['total']:.4f}",
+          wall_s=f"{time.perf_counter() - t:.1f}")
+
+
+def examples_train_lm(torch) -> None:
+    """`torch_train_lm` on the card: train, evict at half the steps, resume
+    from the checkpoint, and the loss falls."""
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = load_example("torch_train_lm").main(
+            ["--steps", str(EXAMPLE_TRAIN_STEPS)])
+    half = EXAMPLE_TRAIN_STEPS // 2
+    first, last = out["phase1"], out["phase2"]
+    require(out["resumed_from"] == half
+            and first["steps_done"] == half
+            and last["steps_done"] == EXAMPLE_TRAIN_STEPS - half,
+            f"resumed from {out['resumed_from']} after "
+            f"{first['steps_done']} steps, then {last['steps_done']}")
+    require(last["final_loss"] < first["losses"][0], "the loss did not fall")
+    phase("16/16 examples.train_lm", config="xlstm-350m/SMOKE",
+          steps=EXAMPLE_TRAIN_STEPS, resumed_from=out["resumed_from"],
+          loss_first=first["losses"][0], loss_at_evict=first["final_loss"],
+          loss_final=last["final_loss"],
+          wall_s=f"{time.perf_counter() - t:.1f}")
+
+
+def phase_examples(torch) -> dict:
+    """The four example ports' card paths (torch_cluster_sim's are phases
+    11 and 12's).  Returns the kernels' launches of serve_multiplex's run
+    (a main path)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = examples_serve()
+    examples_quickstart(torch)
+    examples_train_lm(torch)
+    return {"decode_attention": n}
 
 
 def main() -> int:
@@ -3572,6 +3859,15 @@ def main() -> int:
         print("chip_smoke.py: src/repro_torch not found next to this script; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
+    if shutil.which("nvidia-smi"):
+        # the card's machine sets PYTHONDONTWRITEBYTECODE and its packages
+        # ship no bytecode, so each process compiled torch's sources anew:
+        # keep the bytecode in build/pycache, where the child processes of
+        # phases 13 and 16 load what this process compiled
+        sys.pycache_prefix = os.path.join(ROOT, "build", "pycache")
+        sys.dont_write_bytecode = False
+        os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+        os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs on the card",
@@ -3589,7 +3885,7 @@ def main() -> int:
         seconds[name] = round(time.perf_counter() - t, 1)
         return out
 
-    kind = timed("device", phase_device, torch)
+    kind, card = timed("device", phase_device, torch)
     timed("build", phase_build)
     max_err = timed("kernels", phase_kernels, torch)
     timed("parity", phase_parity, torch)
@@ -3611,10 +3907,12 @@ def main() -> int:
     timed("durable", phase_durable, torch, control)
     zoo = timed("zoo", phase_zoo, torch)
     knobs = timed("knobs", phase_knobs, torch)
-    for part in (zoo, knobs):
+    examples = timed("examples", phase_examples, torch)
+    for part in (zoo, knobs, examples):
         for kernel, n in part.items():
             next(k for k in kernels if k["name"] == kernel)["launches"] += n
     phase("seconds", **seconds, total=f"{sum(seconds.values()):.1f}")
+    print(card, flush=True)        # again, where a cut tail of the log keeps it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,8 +9,10 @@
 
 `sim`, `serve`, `profile`, `inspect`, `diff` and `chaos` are ported, with
 the observability (``--metrics-out`` and the rest) and durability
-(``--durable``, ``--resume``, ``--verify-manifest``) flags; `bench` waits
-for the benchmarks.  The flags are `repro`'s, with these differences:
+(``--durable``, ``--resume``, ``--verify-manifest``) flags, and so are the
+deprecated delegates ``python -m repro_torch.cluster.run`` (``sim``) and
+``python -m repro_torch.profiling.run`` (``profile``); `bench` waits for
+the benchmarks.  The flags are `repro`'s, with these differences:
 
 * ``--device`` places the card work (the speed predictor's training, the
   torch tick engine, the measured matrix, the catalog): the CUDA card by
@@ -674,6 +676,13 @@ def _check_schema_file(path: str, checker) -> int:
         print(f"SCHEMA: {p}", file=sys.stderr)
     print("schema " + ("FAIL" if problems else "OK"), file=sys.stderr)
     return 1 if problems else 0
+
+
+def deprecation_note(old: str, new: str) -> None:
+    """The legacy entry points' stderr-only notice — stdout bytes stay
+    identical to the new CLI's, so artifact pipelines are unaffected."""
+    print(f"note: `{old}` is deprecated; use `{new}` "
+          f"(same flags, same output bytes)", file=sys.stderr)
 
 
 # ---------------------------------------------------------------- dispatch

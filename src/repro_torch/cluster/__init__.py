@@ -14,9 +14,8 @@ Layers the paper's deployment loop over the vectorized
 * :mod:`repro_torch.cluster.scenario` — named, seeded, replayable scenario specs;
 * :mod:`repro_torch.cluster.control` — the ControlPlane that owns the tick loop.
 
-Copied from `repro/cluster`; ``python -m repro_torch sim`` runs it.
-`repro`'s ``cluster/run.py`` (a deprecated delegate of ``sim``) is not
-ported.
+Copied from `repro/cluster`; ``python -m repro_torch sim`` runs it
+(``python -m repro_torch.cluster.run`` is its deprecated delegate).
 """
 from repro_torch.cluster.control import ControlPlane, run_scenario
 from repro_torch.cluster.events import Event, EventBus, EventKind

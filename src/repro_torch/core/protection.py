@@ -7,8 +7,9 @@ same behaviour.
   * A PID controller turning the GPU-load error into the offline duty
     fraction, gated by the kernel-launch throttle.
   * A memory-quota ledger for offline allocations.
-  * A manually advanced clock and the GPU-monitor sample the SysMonitor
-    reads (for the pair-profiling harness).
+  * A manually advanced clock, the GPU-monitor sample the SysMonitor
+    reads (for the pair-profiling harness) and the rolling telemetry
+    buffer (`GPUMonitor`) that keeps the last few minutes of samples.
 """
 from __future__ import annotations
 
@@ -59,6 +60,41 @@ class DeviceTelemetry:
     mem_used_frac: float
     power_w: float = 70.0
     temp_c: float = 60.0
+
+
+class GPUMonitor:
+    """Rolling telemetry buffer: 'stores the metrics for only several minutes
+    because old data ... are useless for timely workload management.'"""
+
+    def __init__(self, horizon_s: float = 300.0, clock: Clock | None = None):
+        self.horizon_s = horizon_s
+        self.clock = clock or WallClock()
+        self.samples: list[DeviceTelemetry] = []
+
+    def sample(self, gpu_util: float, sm_activity: float, sm_clock: float,
+               mem_used_frac: float, **kw) -> DeviceTelemetry:
+        """Record a sample stamped by the injected clock."""
+        s = DeviceTelemetry(ts=self.clock.time(), gpu_util=gpu_util,
+                            sm_activity=sm_activity, sm_clock=sm_clock,
+                            mem_used_frac=mem_used_frac, **kw)
+        self.record(s)
+        return s
+
+    def record(self, sample: DeviceTelemetry) -> None:
+        self.samples.append(sample)
+        cutoff = sample.ts - self.horizon_s
+        while self.samples and self.samples[0].ts < cutoff:
+            self.samples.pop(0)
+
+    def latest(self) -> DeviceTelemetry | None:
+        return self.samples[-1] if self.samples else None
+
+    def mean(self, attr: str, window_s: float = 30.0) -> float:
+        if not self.samples:
+            return 0.0
+        cutoff = self.samples[-1].ts - window_s
+        vals = [getattr(s, attr) for s in self.samples if s.ts >= cutoff]
+        return sum(vals) / max(len(vals), 1)
 
 
 @dataclasses.dataclass(frozen=True)

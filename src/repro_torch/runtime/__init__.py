@@ -1,1 +1,2 @@
-from .fault_tolerance import HeartbeatMonitor, NodeState, stale_mask  # noqa: F401
+from .fault_tolerance import (ElasticCoordinator, ElasticPlan,  # noqa: F401
+                              HeartbeatMonitor, NodeState, stale_mask)

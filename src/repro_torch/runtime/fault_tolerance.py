@@ -1,11 +1,15 @@
-"""Heartbeats and failure detection for the offline training job, copied
-from `repro/runtime/fault_tolerance.py` (`NodeState`, `HeartbeatMonitor`).
+"""Heartbeats, failure detection and elastic membership for the offline
+training job, copied from `repro/runtime/fault_tolerance.py` (`NodeState`,
+`HeartbeatMonitor`, `ElasticPlan`, `ElasticCoordinator`).
 
 A node missing `timeout_s` of heartbeats is dead; a node whose step time
 exceeds `straggler_factor` x the median for `straggler_patience` consecutive
 checks is a straggler (SysMonitor's Unhealthy: its offline job is evicted off
-the critical path).  `repro`'s `ElasticCoordinator` (membership change ->
-mesh rebuild and resume plan) waits for the multi-host work (ROADMAP.md).
+the critical path).  `ElasticCoordinator` turns a membership change into an
+`ElasticPlan` (`node_failure` or `node_join`, the surviving world and the
+checkpoint step to resume from); rebuilding a device mesh from that world is
+the caller's, and the port runs on one card, where the plan's world is the
+set of hosts to restart on.
 """
 from __future__ import annotations
 
@@ -83,3 +87,39 @@ class HeartbeatMonitor:
     def join(self, node_id: int, now: float | None = None) -> None:
         t = time.monotonic() if now is None else now
         self.nodes[node_id] = NodeState(node_id, t)
+
+
+@dataclasses.dataclass
+class ElasticPlan:
+    """Outcome of a membership change: which world to rebuild and from which
+    checkpoint step to resume."""
+    world: list
+    resume_step: int
+    reason: str
+
+
+class ElasticCoordinator:
+    """Couples the failure detector with checkpoint/restart: on membership
+    change, emit a plan (new world, resume step).  The caller restarts on
+    the surviving hosts and restores the checkpoint, whose restore does not
+    depend on how the job was laid out (checkpoint/checkpointing.py)."""
+
+    def __init__(self, monitor: HeartbeatMonitor, get_ckpt_step):
+        self.monitor = monitor
+        self.get_ckpt_step = get_ckpt_step
+        self._last_world: tuple | None = None
+
+    def poll(self, now: float | None = None) -> ElasticPlan | None:
+        status = self.monitor.check(now=now)
+        world = tuple(sorted(status["alive"]))
+        if self._last_world is None:
+            self._last_world = world
+            return None
+        if world != self._last_world:
+            reason = ("node_failure" if len(world) < len(self._last_world)
+                      else "node_join")
+            self._last_world = world
+            return ElasticPlan(world=list(world),
+                               resume_step=self.get_ckpt_step(),
+                               reason=reason)
+        return None

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `repro_torch`, and not chip_smoke.py,
-imports `jax` or `repro`; every module imports without them; and the entry
-points refuse to run on the CPU unless asked to."""
+"""The port stands alone: no module of `repro_torch`, not chip_smoke.py and
+not the example ports (`examples/torch_*.py`) imports `jax` or `repro`;
+every module and example imports without them; and the entry points refuse
+to run on the CPU unless asked to."""
 import ast
 import builtins
 import os
@@ -18,10 +19,11 @@ from _numpy_predictor import NumpyPredictor
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 
 
 def _imported_modules(path: Path):
@@ -35,6 +37,9 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 10
+    assert [f.name for f in EXAMPLES] == [
+        "torch_cluster_sim.py", "torch_quickstart.py",
+        "torch_serve_multiplex.py", "torch_train_lm.py"]
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -78,12 +83,18 @@ def test_every_module_imports_without_jax_or_repro():
         "       'configs.granite_moe_1b_a400m',\n"
         "       'configs.deepseek_v2_lite_16b',\n"
         "       'configs.jamba_1_5_large_398b', 'serving.kv_quant',\n"
-        "       'runtime.compression')}\n"
+        "       'runtime.compression', 'cluster.run', 'profiling.run',\n"
+        "       'core.simulator_legacy')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
         "assert new <= set(names), new - set(names)\n"
+        "import importlib.util\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
+    proc = subprocess.run([sys.executable, "-c", code,
+                           *map(str, EXAMPLES)], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.strip()) >= 35
@@ -99,8 +110,8 @@ def _read_globals(table, top):
 
 
 def test_no_module_reads_an_unbound_global():
-    """Every global name a module of the port (or chip_smoke.py) reads is
-    bound in that module or is a builtin: a name copied in use but not in
+    """Every global name a module of the port (or chip_smoke.py, or an
+    example port) reads is bound in that module or is a builtin: a name copied in use but not in
     definition raises NameError only on the path that reads it."""
     known = set(dir(builtins)) | {"__file__", "__name__", "__path__",
                                   "__spec__", "__doc__"}
