@@ -122,7 +122,7 @@ Phases, one line each (or more); any failure raises and exits non-zero:
  12. control  MuxFlow's control plane (`repro_torch.cluster`, the tick loop
               with agents, fault campaign, autoscaler and job manager over
               the engine): `repro`'s flagship `diurnal-mixed` at the paper's
-              20,000 GPUs over 6 h of the scenario's 12 h, on the numpy
+              20,000 GPUs over 3 h of the scenario's 12 h, on the numpy
               engine and on the torch engine on the card, under one
               predictor trained
               once on the card by the policy's own `build_predictor`; the
@@ -225,6 +225,42 @@ Phases, one line each (or more); any failure raises and exits non-zero:
               card, Algorithm 1's plan) and `torch_train_lm --steps 40`
               (evicted at 20, resumed from the checkpoint at 20, the loss
               falls).  `torch_cluster_sim`'s paths are phases 11 and 12's.
+ 17. mesh     the multi-device layer on the one card.  mesh.launcher:
+              `launch.train.run` of h2o-danube-1.8b FULL (B8 x 64, three
+              AdamW steps) with no mesh, then on a (1, 1) mesh over an
+              NCCL group of one (parameters, moments and batches
+              DTensors placed by the sharding rules): the losses equal to
+              1e-6 relative (bitwise printed); then at SMOKE (a FULL
+              checkpoint with its moments is 18 GB) the step-2
+              checkpoint is restored onto the mesh through `restore(...,
+              shardings=)` and resumes to the same step-3 loss.  mesh.tp and mesh.seq,
+              in four child processes on the one card over gloo, two
+              ranks a mesh and both meshes at once (NCCL
+              refuses two ranks on one device; gloo carries the
+              collectives through the host, so no time here is a TP
+              speed): h2o-danube-1.8b FULL bf16 in `serve` mode, prefill
+              of 1024 tokens through flash_attention, then 31 decode
+              steps through decode_attention, teacher-forced with the
+              one-process run's greedy tokens; on (1, 2) at B2 (each rank
+              16 of the 32 query heads and 4 of the 8 KV heads) and on
+              (2, 1) at B1 (the cache's sequence split over `data`, each
+              rank's partial softmax returned with return_lse and merged
+              across the ranks); every step's logits within 2e-2 by
+              relative norm of the same run in one process without a
+              mesh, each rank's launches exact (flash 24, decode 24 x
+              31), and the greedy tokens equal but at near ties: a token
+              that differs must have the one-process run's top two within
+              twice the step's largest logit difference (the mismatches,
+              their gaps and the differences printed).  mesh.dryrun, in a third child
+              started first: `launch.dryrun.run_cell` for xlstm-350m
+              decode_32k, mistral-nemo-12b decode_32k (KV heads that do
+              not divide 16: the cache split along its sequence) and
+              granite-moe-1b-a400m train_4k with the a2a dispatch
+              (--variant opt), each `ok`, its terms, dominant term and
+              per-rank peak printed (H100 datasheet-peak estimates).
+              Phase 3 holds the decode kernel's return_lse (the lse at
+              2e-5 in fp32) and phase 10 times it in turns against the
+              kernel without it.
 Then one line of each phase's seconds and the card's name and power limit
 again (phase 1's line).  The line before the last is
 {"kernels": [...]}; the last line is
@@ -504,7 +540,7 @@ def phase_device(torch) -> tuple[str, str]:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
-    phase("1/16 device", kind=repr(kind), count=torch.cuda.device_count(),
+    phase("1/17 device", kind=repr(kind), count=torch.cuda.device_count(),
           capability=torch.cuda.get_device_capability(0),
           torch=torch.__version__, cuda=torch.version.cuda)
     return kind, card
@@ -516,7 +552,7 @@ def phase_build() -> None:
     paths = _build.build(*_build.sources())
     for name in paths:
         _build.load(name)
-    phase("2/16 build", kernels=",".join(paths),
+    phase("2/17 build", kernels=",".join(paths),
           seconds=f"{time.perf_counter() - t:.1f}")
 
 
@@ -594,7 +630,7 @@ def check_decode(torch) -> float:
                 zoo2[(name, dtype)] = max(zoo2[(name, dtype)], err)
             n += 1
     require(len(catalog) == 2, "the catalog's decode shape was not checked")
-    phase("3/16 kernels", kernel="decode_attention", cases=n,
+    phase("3/17 kernels", kernel="decode_attention", cases=n,
           max_abs_err_bf16=f"{worst[torch.bfloat16]:.3e}",
           max_abs_err_fp32=f"{worst[torch.float32]:.3e}",
           max_abs_err_catalog_B4_Skv256_d64_fp32=f"{catalog['float32']:.3e}",
@@ -619,7 +655,47 @@ def check_decode(torch) -> float:
                                ("fp32", torch.float32))},
           tol="atol:2e-5,rtol:fp32=2e-5,bf16=2e-5+2**-8",
           against="plain_in_fp32")
+    check_decode_lse(torch, gen, rtol)
     return main_err
+
+
+def check_decode_lse(torch, gen, rtol: dict) -> None:
+    """return_lse: the output under check_decode's rule and the lse (fp32)
+    at 2e-5, against the plain version in fp32, at the table's shape (one
+    split and several: the merged lse of the combine kernel and the direct
+    one) and at the sequence-split decode's shapes of phase 17."""
+    from repro_torch.kernels import decode_attention as da
+    dev = gen.device
+    cases = [((MAIN["B"], MAIN["Skv"], MAIN["H"], MAIN["Hk"], MAIN["d"]), kv)
+             for kv in (RAGGED, MAIN["Skv"])]
+    cases += [((1, MESH_CAPACITY // 2, 32, 8, 80), kv) for kv in (1, 300, 528)]
+    cases += [((B, Skv, H, Hk, d), 64) for B, Skv, H, Hk, d in
+              ((2, 128, 4, 2, 64), (8, 256, 32, 8, 128))]
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, Skv, H, Hk, d), kv_len in cases:
+            q = torch.randn(B, 1, H, d, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(B, Skv, Hk, d, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            lens = (torch.tensor(kv_len, dtype=torch.int32, device=dev)
+                    if isinstance(kv_len, list) else kv_len)
+            out, lse = da.decode_attention_cuda(q, k, v, lens,
+                                                return_lse=True)
+            torch.cuda.synchronize()
+            want, want_lse = da.decode_attention_plain(
+                q.float(), k.float(), v.float(), lens, return_lse=True)
+            key = str(dtype).split(".")[1]
+            e_out = compare(torch, out, want, 2e-5, rtol[dtype])
+            e_lse = compare(torch, lse, want_lse, 2e-5, 2e-5)
+            require(lse.shape == (B, H) and lse.dtype == torch.float32,
+                    f"lse {tuple(lse.shape)} {lse.dtype}")
+            w = worst.setdefault(key, [0.0, 0.0])
+            w[0], w[1] = max(w[0], e_out), max(w[1], e_lse)
+    phase("3/17 kernels", kernel="decode_attention", return_lse=True,
+          cases=len(cases) * 2,
+          **{f"max_abs_err_out_{k}": f"{v[0]:.3e}" for k, v in worst.items()},
+          **{f"max_abs_err_lse_{k}": f"{v[1]:.3e}" for k, v in worst.items()},
+          tol="out:check_decode's,lse:atol=rtol=2e-5", against="plain_in_fp32")
 
 
 def check_flash(torch) -> float:
@@ -661,7 +737,7 @@ def check_flash(torch) -> float:
         del q, big, k, v, out
     torch.cuda.empty_cache()
     small = [e for (s, _), e in errs.items() if s in FLASH_SHAPES]
-    phase("3/16 kernels", kernel="flash_attention", cases=len(errs),
+    phase("3/17 kernels", kernel="flash_attention", cases=len(errs),
           max_abs_err_sweep=f"{max(small):.3e}",
           max_abs_err_mistral_S4096_bf16=f"{errs[(FLASH_MAIN, 'bfloat16')]:.3e}",
           max_abs_err_mistral_S4096_fp32=f"{errs[(FLASH_MAIN, 'float32')]:.3e}",
@@ -726,7 +802,7 @@ def check_mla(torch) -> None:
                 torch, out, want, 2e-5, rtol[dtype])
             del q, k, v, out, want
     torch.cuda.empty_cache()
-    phase("3/16 kernels", kernel="decode_attention+flash_attention",
+    phase("3/17 kernels", kernel="decode_attention+flash_attention",
           route="mla_v_zero_padded", cases=len(MLA_DECODE) * 2
           + len(MLA_FLASH) + 1,
           **{f"max_abs_err_{kind}_qk{dq}_v{dv}_{dt}": f"{e:.3e}"
@@ -824,7 +900,7 @@ def check_capped(torch) -> None:
                     del out
                 del q, k, v
                 torch.cuda.empty_cache()
-    phase("3/16 kernels", kernel="decode_attention+flash_attention",
+    phase("3/17 kernels", kernel="decode_attention+flash_attention",
           softcap=",".join(str(c) for c in SOFTCAPS), cases=len(errs),
           max_abs_score=f"{spread:.1f}",
           **{f"max_abs_err_{kind}_d{d}_cap{cap:g}_{dt}":
@@ -888,7 +964,7 @@ def check_ssm(torch) -> float:
     sweep = {a: max(e for (s, k), e in errs.items()
                     if k == a and s != SSM_MAIN)
              for a in ("shared", "per_channel")}
-    phase("3/16 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
+    phase("3/17 kernels", kernel="ssm_scan", cases=len(errs), runs=runs,
           lanes="1,2,4",
           max_abs_err_sweep=f"{sweep['shared']:.3e}",
           max_abs_err_sweep_per_channel_A=f"{sweep['per_channel']:.3e}",
@@ -940,7 +1016,7 @@ def check_ssm_state(torch) -> None:
         del args, want_y, want_h
     torch.cuda.empty_cache()
     sweep = max(e for shape, e in errs.items() if shape in SSM_SHAPES)
-    phase("3/16 kernels", kernel="ssm_scan", state="h0_and_h_last",
+    phase("3/17 kernels", kernel="ssm_scan", state="h0_and_h_last",
           cases=len(errs), runs=runs, lanes="1,2,4",
           max_abs_err_sweep=f"{sweep:.3e}",
           max_abs_err_jamba_S4096=f"{errs[SSM_MAIN]:.3e}",
@@ -953,7 +1029,7 @@ def phase_parity(torch) -> None:
     import numpy as np
     mistral = parity(torch, "mistral-nemo-12b", [np.array([0, 3, 10, 40])],
                      steps=6, prompt=(2, 9), new=(2, 6))
-    phase("4/16 parity", config="mistral-nemo-12b/SMOKE/fp32",
+    phase("4/17 parity", config="mistral-nemo-12b/SMOKE/fp32",
           logits_max_abs_err=f"{mistral:.3e}", tol="1e-4",
           engine_tokens="equal")
     # one position for every row, then ragged per-row positions: 40 steps
@@ -962,7 +1038,7 @@ def phase_parity(torch) -> None:
     danube = parity(torch, "h2o-danube-1.8b",
                     [np.zeros(4, np.int64), np.array([0, 5, 11, 30])],
                     steps=40, prompt=(10, 21), new=(8, 14))
-    phase("4/16 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
+    phase("4/17 parity", config="h2o-danube-1.8b/SMOKE/fp32", window=16,
           cache_rows=16, steps="40_scalar_pos+40_ragged_pos",
           logits_max_abs_err=f"{danube:.3e}", tol="1e-4",
           engine_tokens="equal")
@@ -970,12 +1046,12 @@ def phase_parity(torch) -> None:
     # engine's six requests through three slots reuse slots (F5)
     xlstm = parity(torch, "xlstm-350m", [np.zeros(4, np.int64)], steps=20,
                    prompt=(2, 9), new=(2, 6))
-    phase("4/16 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
+    phase("4/17 parity", config="xlstm-350m/SMOKE/fp32", steps=20,
           logits_max_abs_err=f"{xlstm:.3e}", tol="1e-4",
           engine_tokens="equal_under_slot_reuse")
     for arch in GENERATE_PARITY:
         err = generate_parity(torch, arch)
-        phase("4/16 parity.generate", config=f"{arch}/SMOKE/fp32",
+        phase("4/17 parity.generate", config=f"{arch}/SMOKE/fp32",
               batch=2, prompt=21, steps=12,
               prefill_logits_max_abs_err=f"{err:.3e}", tol="1e-4",
               greedy_tokens="equal")
@@ -1087,7 +1163,7 @@ def phase_serve(torch) -> dict:
     run_launches = da.launches
     require(run_launches == cfg.num_layers * res["decode_steps"],
             f"run: {run_launches} launches for {res['decode_steps']} steps")
-    phase("5/16 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
+    phase("5/17 serve.run", base_ms=res["base_ms"], p50_ms=res["p50_ms"],
           p99_ms=res["p99_ms"], served=res["served"],
           decode_steps=res["decode_steps"], launches=run_launches,
           wall_s=f"{wall:.1f}")
@@ -1122,7 +1198,7 @@ def phase_serve(torch) -> dict:
                                        device="cuda"), 100)
     require(tuple(logits.shape) == (8, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()), "bad full-width logits")
-    phase("5/16 serve.engine", requests=len(reqs), decode_steps=eng.steps,
+    phase("5/17 serve.engine", requests=len(reqs), decode_steps=eng.steps,
           new_tokens=new, tokens_per_s=f"{new / wall:.1f}",
           wall_s=f"{wall:.2f}", launches=eng_launches,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
@@ -1172,7 +1248,7 @@ def phase_share(torch) -> int:
         off_ms = (res["oversold"] * horizon / res["offline_steps"] * 1e3
                   if share else None)
         # the SLO guard's eviction ends the run early: fewer served
-        phase("6/16 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
+        phase("6/17 share", config="h2o-danube-1.8b/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=requests,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -1252,7 +1328,7 @@ def phase_generate(torch) -> dict:
             "vocabulary")
         for k in total:
             total[k] += n[k]
-        phase("7/16 generate", config=f"{arch}/FULL/bf16",
+        phase("7/17 generate", config=f"{arch}/FULL/bf16",
               layers=cfg.num_layers, batch=B, prompt=S0, decode_steps=steps, new_tokens=B * (steps + 1),
               prefill_ms=f"{prefill_ms:.2f}",
               decode_ms_per_step=f"{(wall * 1e3 - prefill_ms) / steps:.2f}",
@@ -1279,7 +1355,7 @@ def phase_generate(torch) -> dict:
             require(res["train_steps_done"] == res["offline_steps"] + 2,
                     f"train steps {res['train_steps_done']} for "
                     f"{res['offline_steps']} offline steps")
-        phase("7/16 generate.serve", config="xlstm-350m/FULL/bf16",
+        phase("7/17 generate.serve", config="xlstm-350m/FULL/bf16",
               share=share, batch=4, requests=200, base_ms=res["base_ms"],
               p50_ms=res["p50_ms"], p99_ms=res["p99_ms"],
               served=res["served"], evicted=res["served"] < 200,
@@ -1333,13 +1409,13 @@ def phase_profile(torch) -> tuple[dict, object, object]:
         atol, rtol = CHECKSUM_TOL[name]
         require(abs(g - w) <= atol + rtol * abs(w),
                 f"{name}: checksum {g} on the card, {w} on the CPU")
-        phase("8/16 profile.exec", workload=name, device="cuda",
+        phase("8/17 profile.exec", workload=name, device="cuda",
               steps=rec.steps_executed,
               wall_ms_per_step=rec.wall_ms_per_step, checksum_card=g,
               checksum_cpu=w, tol=f"atol:{atol},rtol:{rtol}")
     require(got == want, "the card's matrix differs from the CPU-built one "
             "in a field other than the checksums")
-    phase("8/16 profile", suite="smoke", seed=0, pairs=len(card.pairs),
+    phase("8/17 profile", suite="smoke", seed=0, pairs=len(card.pairs),
           cells=sum(len(p["shares"]) for p in card.pairs), schema="clean",
           matrix="equal_to_cpu_but_checksums", launches=counts,
           wall_s=f"{wall:.2f}", cpu_matrix_s=f"{cpu_s:.2f}")
@@ -1354,7 +1430,7 @@ def phase_profile(torch) -> tuple[dict, object, object]:
             f"bad validation MAE {maes}")
     require(all(p[0]["w"].device.type == "cuda"
                 for p in pred.params_by_type.values()), "predictor not on card")
-    phase("8/16 profile.predictor", device="cuda",
+    phase("8/17 profile.predictor", device="cuda",
           epochs=len(hist["T4"]["val_mae"]),
           **{f"final_val_mae_{gpu}": m for gpu, m in maes.items()},
           seconds=f"{secs:.2f}")
@@ -1386,7 +1462,7 @@ def phase_train(torch) -> None:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
     require(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    phase("9/16 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
+    phase("9/17 train", config="xlstm-350m/FULL/bf16", batch=2, seq=512,
           params=cfg.param_count(), losses=losses, step_ms=ms,
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     del params, state
@@ -1412,7 +1488,7 @@ def train_danube(torch) -> None:
     losses = out["losses"]
     require(out["steps_done"] == 5 and not out["interrupted"]
             and all(math.isfinite(v) for v in losses), f"train.run {out}")
-    phase("9/16 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
+    phase("9/17 train", config="h2o-danube-1.8b/FULL/bf16", optimizer="AdamW",
           batch=8, seq=64, params=cfg.param_count(), losses=losses,
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -1457,7 +1533,7 @@ def offline_step_breakdown(torch) -> None:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
     n = cfg.param_count()
-    phase("9/16 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
+    phase("9/17 train.offline_step", config="h2o-danube-1.8b/FULL/bf16",
           batch=4, seq=32, step_ms=[t * 1e3 for t in step_s[1:]],
           grad_ms=[(t - u) * 1e3 for t, u in zip(step_s[1:], update_s[1:])],
           adamw_ms=[u * 1e3 for u in update_s[1:]],
@@ -1501,7 +1577,7 @@ def checkpoint_roundtrip(torch) -> None:
     require(at == 2 and len(pairs) == 4 * len(tree[0]) + 1 and all(
         y.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y)
         for x, y in pairs), "restored checkpoint differs")
-    phase("9/16 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
+    phase("9/17 train.checkpoint", config="h2o-danube-1.8b/SMOKE/bf16",
           leaves=len(pairs), step=at, restored_to="cuda", equal="bitwise")
 
 
@@ -1555,7 +1631,7 @@ def time_mla(torch) -> None:
     bound_ms, by = bound(nbytes, {"bf16": (2 * B * H * Skv * (dq + dv),
                                            PEAK_FLOPS["bfloat16"])})
     padded_ms = (2 * B * Skv * H * dq * 2) / PEAK_BYTES_S * 1e3
-    phase("10/16 timing", kernel="decode_attention", model="deepseek_mla",
+    phase("10/17 timing", kernel="decode_attention", model="deepseek_mla",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{H}_qk{dq}_v{dv}_padded_to_{dq}_bf16_"
           f"kvlen{Skv}",
           graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
@@ -1576,7 +1652,7 @@ def time_mla(torch) -> None:
     flops = 2 * B * H * visible * (dq + dv)
     nbytes = (2 * B * S * H * dq + 2 * B * S * H * dv) * 2
     bound_ms, by = bound(nbytes, {"bf16": (flops, PEAK_FLOPS["bfloat16"])})
-    phase("10/16 timing", kernel="flash_attention", model="deepseek_mla",
+    phase("10/17 timing", kernel="flash_attention", model="deepseek_mla",
           shape=f"B{B}_S{S}_H{H}_Hk{H}_qk{dq}_v{dv}_padded_to_{dq}_bf16_"
           "causal", bf16_tile=fa.tile_plan(dq),
           graph_ms=graph_ms(torch, lambda: fa.flash_attention_cuda(
@@ -1650,7 +1726,7 @@ def time_capped(torch) -> None:
         q, k, v, lens, cap))
     lib = library_line(torch, lambda: flex_capped(torch, q, k, v, cap, False),
                        want)
-    phase("10/16 timing", kernel="decode_attention", softcap=cap,
+    phase("10/17 timing", kernel="decode_attention", softcap=cap,
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
           graph_ms_free=ms["free"], graph_ms_capped=ms["capped"],
           capped_over_free=f"{sum(ms['capped']) / sum(ms['free']):.4f}",
@@ -1673,7 +1749,7 @@ def time_capped(torch) -> None:
     lib = library_line(torch, lambda: flex_capped(torch, q, k, v, cap,
                                                   causal), want)
     B, Sq, Skv, H, Hk, d = shape[:6]
-    phase("10/16 timing", kernel="flash_attention", softcap=cap,
+    phase("10/17 timing", kernel="flash_attention", softcap=cap,
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal",
           graph_ms_free=ms["free"], graph_ms_capped=ms["capped"],
           capped_over_free=f"{sum(ms['capped']) / sum(ms['free']):.4f}",
@@ -1744,7 +1820,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     ns, split_len = da.split_plan(B, Hk, Skv, *da._card_plan(
         da._library(), dev, q.dtype, H, Hk, d))
     call = lambda: da.decode_attention_cuda(q, k, v, short)  # noqa: E731
-    phase("10/16 timing", kernel="decode_attention",
+    phase("10/17 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{SERVE_KV_LEN}",
           ms=time_ms(torch, call), graph_ms=graph_ms(torch, call),
           splits=ns, split_len=split_len)
@@ -1758,12 +1834,22 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - da.decode_attention_plain(
         q, k, v, lens).float()).abs().max())
     library_ms, library_events_ms = graph_ms(torch, sdpa), time_ms(torch, sdpa)
-    phase("10/16 timing", kernel="decode_attention",
+    phase("10/17 timing", kernel="decode_attention",
           shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
           ms=ms, events_ms=events_ms, plain_ms=plain_ms,
           library_ms=library_ms, library_events_ms=library_events_ms,
           library_max_abs_err=f"{library_err:.3e}", bound_ms=bound_ms,
           bound_by=by)
+    # return_lse against the kernel without it, in turns (CUDA graphs)
+    turns = in_turns(torch, {
+        "plain": lambda: da.decode_attention_cuda(q, k, v, lens),
+        "lse": lambda: da.decode_attention_cuda(q, k, v, lens,
+                                                return_lse=True)})
+    phase("10/17 timing", kernel="decode_attention", return_lse=True,
+          shape=f"B{B}_Skv{Skv}_H{H}_Hk{Hk}_d{d}_bf16_kvlen{Skv}",
+          graph_ms_without=json.dumps(turns["plain"]),
+          graph_ms_with=json.dumps(turns["lse"]), order="without,with,with,"
+          "without")
     # the head widths and groups phases 7 and 14 added, in CUDA graphs
     for name, (b, skv, h, hk, dh, _) in (("danube3", ZOO_DECODE[1]),
                                          ("gemma", ZOO_DECODE[3]),
@@ -1772,7 +1858,7 @@ def time_decode(torch, launches: dict, max_err: float) -> dict:
                                          ("jamba", JAMBA_DECODE[1])):
         q2, k2, v2, lens2, sdpa2, bound2, by2 = decode_inputs(
             torch, gen, b, skv, h, hk, dh)
-        phase("10/16 timing", kernel="decode_attention", model=name,
+        phase("10/17 timing", kernel="decode_attention", model=name,
               shape=f"B{b}_Skv{skv}_H{h}_Hk{hk}_d{dh}_bf16_kvlen{skv}",
               graph_ms=graph_ms(torch, lambda: da.decode_attention_cuda(
                   q2, k2, v2, lens2)),
@@ -1831,7 +1917,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
             ptxas[f"wgmma_forward_{dp_bk}"] = (
                 f"regs:{r.get('registers')},spill_bytes:"
                 f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/16 timing", kernel="flash_attention", design="wgmma",
+    phase("10/17 timing", kernel="flash_attention", design="wgmma",
           bf16_tile=fa.tile_plan(d), **ptxas)
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v, sdpa, bound_ms, by, flops, nbytes = flash_inputs(torch, gen,
@@ -1844,7 +1930,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
     library_err = float((sdpa().transpose(1, 2).float() - fa.flash_attention_cuda(
         q, k, v, causal=causal).float()).abs().max())
     library_ms = time_ms(torch, sdpa)
-    phase("10/16 timing", kernel="flash_attention",
+    phase("10/17 timing", kernel="flash_attention",
           shape=f"B{B}_S{Sq}_H{H}_Hk{Hk}_d{d}_bf16_causal", ms=ms,
           plain_ms=plain_ms, library_ms=library_ms,
           library_vs_kernel_max_abs_diff=f"{library_err:.3e}",
@@ -1856,7 +1942,7 @@ def time_flash(torch, launches: dict, max_err: float) -> dict:
         q2, k2, v2, sdpa2, bound2, by2, flops2, nbytes2 = flash_inputs(
             torch, gen, shape)
         B2, Sq2, Skv2, H2, Hk2, d2, causal2, window2 = shape
-        phase("10/16 timing", kernel="flash_attention", model=name,
+        phase("10/17 timing", kernel="flash_attention", model=name,
               shape=f"B{B2}_Sq{Sq2}_Skv{Skv2}_H{H2}_Hk{Hk2}_d{d2}_bf16_"
               + ("causal" if causal2 else "full")
               + (f"_w{window2}" if window2 else ""),
@@ -1895,7 +1981,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         ptxas[f"N{n}_L{lanes}"] = (
             f"regs:{r.get('registers')},spill_bytes:"
             f"{r.get('spill_stores', 0) + r.get('spill_loads', 0)}")
-    phase("10/16 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
+    phase("10/17 timing", kernel="ssm_scan", ptxas=json.dumps(ptxas))
     args = ssm_args(torch, torch.Generator(device="cuda").manual_seed(5),
                     B, S, di, N)
     shape = f"B{B}_S{S}_di{di}_N{N}_fp32"
@@ -1906,7 +1992,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
         call = lambda: ss.ssm_scan_cuda(*args, lanes=lanes)  # noqa: E731
         events_ms = time_ms(torch, call)
         clock = sm_clock()
-        phase("10/16 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
+        phase("10/17 timing", kernel="ssm_scan", shape=shape, lanes=lanes,
               ms=events_ms, sm_clock_mhz=clock,
               graph_ms=graph_ms(torch, call))
     plan = ss.lane_plan(B, di, N,
@@ -1925,7 +2011,7 @@ def time_ssm(torch, launches: dict, max_err: float) -> dict:
     flops = 6 * B * S * di * N     # dt*A, dA*h + bx*B, h*C, the sum over N
     bound_ms, by = bound(nbytes, {"exp": (exps, PEAK_EXP_S),
                                   "fp32": (flops, PEAK_FLOPS["float32"])})
-    phase("10/16 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
+    phase("10/17 timing", kernel="ssm_scan", shape=shape, lanes=plan.lanes,
           channels_per_block=plan.channels, blocks=plan.blocks,
           busiest_sm_channels=plan.busiest,
           mean_sm_channels=f"{plan.mean:.2f}", ms=ms, graph_ms=device_ms,
@@ -1965,7 +2051,7 @@ def time_ssm_state(torch, args: tuple, bound_ms: float, by: str,
     ss.launches = saved                  # launches to time do not count
     state_bytes = 2 * B * di * N * 4
     pct = 100 * (min(times["h0_h_last"]) / min(times["none"]) - 1)
-    phase("10/16 timing", kernel="ssm_scan", shape=f"B{B}_S{S}_di{di}_N{N}"
+    phase("10/17 timing", kernel="ssm_scan", shape=f"B{B}_S{S}_di{di}_N{N}"
           "_fp32", state="none|h_last|h0_h_last", turns=json.dumps(times),
           graph_ms_none=min(times["none"]),
           graph_ms_h_last=min(times["h_last"]),
@@ -2111,7 +2197,7 @@ def fleet_line(name: str, engine: str, run: dict, **extra) -> None:
                       predictor_ms_max=f"{max(ms):.3f}")
     fields["phases_s"] = json.dumps({k: round(v, 3) for k, v in
                                      sorted(run["phases_s"].items())})
-    phase(f"11/16 fleet.{name}", engine=engine, **fields, **extra)
+    phase(f"11/17 fleet.{name}", engine=engine, **fields, **extra)
 
 
 def engine_profile(torch, sim, ticks: int = 30) -> None:
@@ -2145,7 +2231,7 @@ def engine_profile(torch, sim, ticks: int = 30) -> None:
                       idle_share=f"{1.0 - busy / wall_ms:.3f}")
     else:
         fields.update(device_busy_ms="not measured (no device events)")
-    phase("11/16 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
+    phase("11/17 fleet.engine", device="cuda", n_devices=sim.cfg.n_devices,
           **fields)
 
 
@@ -2194,7 +2280,7 @@ def phase_fleet(torch, card_matrix, predictor) -> None:
               for t, f, _ in calls)
     require(err <= PREDICTOR_TOL,
             f"card predictions off the CPU's by {err} > {PREDICTOR_TOL}")
-    phase("11/16 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
+    phase("11/17 fleet.predictor", rows=sum(len(f) for _, f, _ in calls),
           gpu_types=sorted({str(t) for t, _, _ in calls}), max_abs_err=err,
           tol=PREDICTOR_TOL, matmul_precision=repr(
               torch.get_float32_matmul_precision()),
@@ -2294,7 +2380,7 @@ def fleet_legacy(torch) -> None:
     require(not bad, f"the torch engine breaks the parity rule against the "
             f"legacy engine in {bad}")
     require(ref.n_finished > 0 and ref.n_jobs > 0, "no job finished")
-    phase("11/16 fleet.legacy", policy="muxflow", engines="torch~legacy",
+    phase("11/17 fleet.legacy", policy="muxflow", engines="torch~legacy",
           n_devices=LEGACY["n_devices"], horizon_h=LEGACY["horizon_s"] / 3600,
           trace=LEGACY["trace"], seed=LEGACY["seed"],
           n_finished=ref.n_finished, evictions=ref.evictions,
@@ -2306,9 +2392,9 @@ def fleet_legacy(torch) -> None:
 
 
 # phase 12: `repro`'s flagship campaign at the paper's fleet, 30 s ticks,
-# over 6 h of the scenario's 12 h, cut so that the script stays near its
-# time line
-CONTROL = dict(scenario="diurnal-mixed", n_devices=20000, hours=6)
+# over 3 h of the scenario's 12 h (6 h before phase 17 was added), cut so
+# that the script stays near its time line
+CONTROL = dict(scenario="diurnal-mixed", n_devices=20000, hours=3)
 CONTROL_PROFILED_TICKS = 30
 
 
@@ -2424,7 +2510,7 @@ def phase_control(torch) -> dict:
     require(all(p[0]["w"].device.type == "cuda"
                 for p in predictor.params_by_type.values()),
             "the predictor is not on the card")
-    phase("12/16 control.predictor", device="cuda", policy=sc.policy,
+    phase("12/17 control.predictor", device="cuda", policy=sc.policy,
           samples=sc.predictor_samples, epochs=sc.predictor_epochs,
           seconds=f"{time.perf_counter() - t:.2f}")
     runs = {engine: control_run(torch, sc, predictor, engine)
@@ -2441,7 +2527,7 @@ def phase_control(torch) -> dict:
             and math.isfinite(f["propagation_rate"]),
             f"implausible campaign report {s}")
     for engine, run in runs.items():
-        phase("12/16 control.diurnal-mixed", engine=engine,
+        phase("12/17 control.diurnal-mixed", engine=engine,
               device=("cuda" if engine == "torch" else "host"),
               n_devices=sc.n_devices, hours=sc.hours, tick_s=sc.tick_s,
               wall_s=f"{run['head_s'] + run['tail_s']:.2f}",
@@ -2449,7 +2535,7 @@ def phase_control(torch) -> dict:
               split_s=json.dumps({k: round(v, 3) for k, v in
                                   sorted(run["split_s"].items())}),
               **run.get("profiled", {}))
-    phase("12/16 control.report", scenario=sc.name, engines="numpy==torch",
+    phase("12/17 control.report", scenario=sc.name, engines="numpy==torch",
           bytes=len(canon["numpy"]), schema="clean",
           gpu_util=s["gpu_util"], sm_activity=s["sm_activity"],
           oversold_gpu=s["oversold_gpu"], avg_slowdown=s["avg_slowdown"],
@@ -2470,7 +2556,7 @@ def phase_control(torch) -> dict:
             f"(phase 8's matrix is not reused): {counts}")
     require(not check_schema(rep) and rep["sim"]["n_finished"] > 0,
             "calibrated: bad report")
-    phase("12/16 control.calibrated", n_devices=rep["scenario"]["n_devices"],
+    phase("12/17 control.calibrated", n_devices=rep["scenario"]["n_devices"],
           matrix="built on the card", launches=counts,
           gpu_util=rep["sim"]["gpu_util"],
           avg_slowdown=rep["sim"]["avg_slowdown"],
@@ -2482,10 +2568,10 @@ def phase_control(torch) -> dict:
             "serving-slo: bad report")
     for svc, row in sorted(serving["services"].items()) + [
             ("total", serving["total"])]:
-        phase("12/16 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
+        phase("12/17 control.serving-slo", service=svc, p50_ms=row["p50_ms"],
               p99_ms=row["p99_ms"], slo_attainment=row["slo_attainment"],
               shed=row["shed"], arrived=row["arrived"])
-    phase("12/16 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
+    phase("12/17 control.serving-slo", n_devices=rep["scenario"]["n_devices"],
           hours=rep["scenario"]["hours"], wall_s=f"{wall:.2f}")
 
     rep, wall = run_cli(torch, ["sim", "--scenario", "chaos-storm"])
@@ -2493,7 +2579,7 @@ def phase_control(torch) -> dict:
     require(not check_schema(rep) and res["injected"] > 0
             and res["unmatched"] == 0,
             f"chaos-storm: unpaired faults {res['unmatched_by_kind']}")
-    phase("12/16 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
+    phase("12/17 control.chaos-storm", n_devices=rep["scenario"]["n_devices"],
           injected=res["injected"], recovered=res["recovered"],
           unmatched=res["unmatched"],
           injected_by_kind=json.dumps(res["injected_by_kind"]),
@@ -2626,11 +2712,11 @@ def phase_durable(torch, control: dict) -> None:
         for line in err.splitlines():
             if line.startswith("[phases]") and "phase" not in line[9:15]:
                 name, *vals = line[9:].split()
-                phase("13/16 durable.phases", phase=name, wall_s=vals[0],
+                phase("13/17 durable.phases", phase=name, wall_s=vals[0],
                       **({"share": vals[1], "calls": vals[2]}
                          if len(vals) == 3 else {}))
         obs = rep["obs"]
-        phase("13/16 durable.run", scenario=D["scenario"],
+        phase("13/17 durable.run", scenario=D["scenario"],
               n_devices=D["n_devices"], hours=rep["scenario"]["hours"],
               engine="torch", device="cuda", ticks=n,
               wall_s=f"{wall:.2f}", ms_per_tick=f"{wall * 1e3 / n:.3f}",
@@ -2641,7 +2727,7 @@ def phase_durable(torch, control: dict) -> None:
               parts_s=json.dumps({k: round(v, 3)
                                   for k, v in sorted(parts.s.items())}),
               schema="clean", prom_lint="clean", manifest="OK")
-        phase("13/16 durable.wal", backend="jsonl", events=events,
+        phase("13/17 durable.wal", backend="jsonl", events=events,
               events_per_s=f"{events / wall:.1f}",
               append_us=f"{parts.s['wal_append'] * 1e6 / events:.2f}",
               metrics_rows=obs["metrics"]["rows"],
@@ -2649,7 +2735,7 @@ def phase_durable(torch, control: dict) -> None:
               trace_rows=obs["trace"]["rows"],
               incidents=rep["incidents"]["total"])
         n_snap = n // every - (1 if n % every == 0 else 0)
-        phase("13/16 durable.snapshots", taken=n_snap, kept=len(snaps),
+        phase("13/17 durable.snapshots", taken=n_snap, kept=len(snaps),
               every_ticks=every,
               bytes_each=json.dumps(dict(zip(snaps, snap_bytes))),
               ms_each=f"{parts.s['snapshot'] * 1e3 / n_snap:.1f}")
@@ -2717,7 +2803,7 @@ def phase_durable(torch, control: dict) -> None:
                                                      "manifest.json")])
         require(rc == 0, f"resumed manifest: {verr}")
         live_s = tick_at[n] - tick_at[origin]
-        phase("13/16 durable.resume", killed_at_tick=kill,
+        phase("13/17 durable.resume", killed_at_tick=kill,
               resumed_from_tick=origin, ticks_replayed=n - origin,
               killed_run_s=f"{killed_s:.2f}",
               resume_process_s=f"{resume_s:.2f}",
@@ -2739,8 +2825,8 @@ def phase_durable(torch, control: dict) -> None:
                 and doc["devices"]["total"] == D["n_devices"],
                 f"inspect: {doc['tick']}, {doc['devices']}")
         for line in err.strip().splitlines():
-            phase("13/16 durable.inspect", line=repr(line))
-        phase("13/16 durable.inspect", tick=D["inspect_tick"],
+            phase("13/17 durable.inspect", line=repr(line))
+        phase("13/17 durable.inspect", tick=D["inspect_tick"],
               wall_s=f"{wall:.2f}")
 
         # 4. serve durable on both engines: every artifact byte-equal
@@ -2760,7 +2846,7 @@ def phase_durable(torch, control: dict) -> None:
                 "serving-slo's artifacts differ between the engines")
         with open(os.path.join(work, "serve-torch", "report.json")) as f:
             rep = json.load(f)
-        phase("13/16 durable.serve", scenario="serving-slo",
+        phase("13/17 durable.serve", scenario="serving-slo",
               n_devices=rep["scenario"]["n_devices"],
               hours=rep["scenario"]["hours"], engines="numpy==torch",
               files=",".join(sorted(out["torch"][0])),
@@ -2783,11 +2869,11 @@ def phase_durable(torch, control: dict) -> None:
                 and names.get("recovery-byte-identity"),
                 f"chaos: exit code {rc}, invariants {names}")
         for inv in verdict["invariants"]:
-            phase("13/16 durable.chaos", invariant=inv["name"],
+            phase("13/17 durable.chaos", invariant=inv["name"],
                   result="PASS" if inv["ok"] else "FAIL",
                   detail=repr(inv["detail"]))
         res = verdict["resilience"]
-        phase("13/16 durable.chaos", scenario="chaos-storm", engine="torch",
+        phase("13/17 durable.chaos", scenario="chaos-storm", engine="torch",
               device="cuda", injected=res["injected"],
               recovered=res["recovered"],
               store_faults=res["ladder"]["store_faults"],
@@ -2895,7 +2981,7 @@ def zoo_parity(torch, arch: str) -> float:
 
 def zoo_generate(torch, arch: str, B: int, S: int, steps: int,
                  overrides: dict | None = None, params=None,
-                 label: str = "14/16 zoo.generate") -> dict:
+                 label: str = "14/17 zoo.generate") -> dict:
     """`greedy_generate` at full width in bf16 (the FULL config with
     `overrides`, a cut of its depth or a knob, if any; on `params`, or
     weights drawn from seed 0) with its prefill timed alone first; the
@@ -2989,7 +3075,7 @@ def zoo_serve(torch) -> int:
                     f"train steps {res['train_steps_done']} for "
                     f"{res['offline_steps']} offline steps")
         total += n
-        phase("14/16 zoo.serve", config=f"{arch}/FULL/bf16", share=share,
+        phase("14/17 zoo.serve", config=f"{arch}/FULL/bf16", share=share,
               batch=8, kv_cap=4096, requests=SERVE_REQUESTS,
               base_ms=res["base_ms"], p50_ms=res["p50_ms"],
               p99_ms=res["p99_ms"], served=res["served"],
@@ -3042,7 +3128,7 @@ def zoo_engine(torch, cfg, params, kv_capacity: int = 4096) -> int:
     require(all(len(r.output) == r.max_new_tokens for r in reqs) and all(
         0 <= tok < cfg.vocab_size for r in reqs for tok in r.output),
         "engine output has the wrong length or ids out of the vocabulary")
-    phase("14/16 zoo.engine", config=f"{cfg.name}/FULL/bf16",
+    phase("14/17 zoo.engine", config=f"{cfg.name}/FULL/bf16",
           layers=cfg.num_layers, slots=8, kv_capacity=kv_capacity,
           requests=len(reqs), decode_steps=eng.steps, new_tokens=new,
           tokens_per_s=f"{new / wall:.1f}", wall_s=f"{wall:.2f}",
@@ -3107,7 +3193,7 @@ def zoo_eval(torch, cfg, params, B: int, S: int, **fields) -> None:
             f"{cfg.name}: loss_fn {loss}, {ce} against eval step {got}")
     p = cfg.param_count()
     # bf16 weights and gradients, fp32 m and v (the port's AdamW)
-    phase("14/16 zoo.train", config=f"{cfg.name}/FULL/bf16",
+    phase("14/17 zoo.train", config=f"{cfg.name}/FULL/bf16",
           layers=cfg.num_layers, via="make_eval_step", batch=B, seq=S,
           loss=loss, ce=ce, moe_aux=aux, step_ms=f"{ms:.2f}",
           **{k: f"{v:.2f}" for k, v in fields.items()},
@@ -3179,7 +3265,7 @@ def zoo_train(torch) -> None:
     wall = time.perf_counter() - t
     require(out["steps_done"] == 3 and all(
         math.isfinite(v) for v in out["losses"]), f"train.run {out}")
-    phase("14/16 zoo.train", config=f"{arch}/FULL/bf16", via="launch.train",
+    phase("14/17 zoo.train", config=f"{arch}/FULL/bf16", via="launch.train",
           optimizer="AdamW", batch=B, seq=S, losses=out["losses"],
           wall_s=f"{wall:.2f}",
           peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -3214,7 +3300,7 @@ def zoo_train(torch) -> None:
         if cfg.num_experts:
             require(all(m["moe_aux"] > 0 for m in metrics),
                     f"{arch}: no MoE aux loss {metrics}")
-        phase("14/16 zoo.train", config=f"{arch}/FULL/bf16",
+        phase("14/17 zoo.train", config=f"{arch}/FULL/bf16",
               via="make_train_step", optimizer="AdamW", batch=B, seq=S,
               source_frames=ZOO2_FRAMES if cfg.enc_layers else 0,
               metrics=metrics, step_ms=ms,
@@ -3237,7 +3323,7 @@ def zoo_train(torch) -> None:
             f"{arch}: eval {got}")
     n = cfg.param_count()
     # bf16 weights and gradients, fp32 m and v (the port's AdamW)
-    phase("14/16 zoo.train", config=f"{arch}/FULL/bf16", via="make_eval_step",
+    phase("14/17 zoo.train", config=f"{arch}/FULL/bf16", via="make_eval_step",
           batch=1, patches=cfg.num_patches, seq=1024,
           loss=float(got["loss"]), ce=float(got["ce"]), step_ms=ms,
           adamw_state_gb=f"{12 * n / 1e9:.1f}",
@@ -3266,7 +3352,7 @@ def phase_zoo(torch) -> dict:
 
     for arch in [g[0] for g in ZOO2_GENERATE] + [DEEPSEEK, JAMBA]:
         err = timed(arch, zoo_parity, torch, arch)
-        phase("14/16 zoo.parity", config=f"{arch}/SMOKE/fp32", batch=2,
+        phase("14/17 zoo.parity", config=f"{arch}/SMOKE/fp32", batch=2,
               prompt=21, decode_steps=20, greedy_steps=12,
               logits_max_abs_err=f"{err:.3e}", tol="1e-4",
               greedy_tokens="equal")
@@ -3274,7 +3360,7 @@ def phase_zoo(torch) -> dict:
     for arch in ("granite-moe-1b-a400m", DEEPSEEK, JAMBA):
         err = timed(arch, parity, torch, arch, [np.array([0, 3, 10, 40])], 6,
                     (2, 9), (2, 6))
-        phase("14/16 zoo.parity", config=f"{arch}/SMOKE/fp32",
+        phase("14/17 zoo.parity", config=f"{arch}/SMOKE/fp32",
               decode="ragged_pos", logits_max_abs_err=f"{err:.3e}",
               tol="1e-4", engine_tokens="equal")
     total = {"decode_attention": 0, "flash_attention": 0, "ssm_scan": 0}
@@ -3290,7 +3376,7 @@ def phase_zoo(torch) -> dict:
     for arch, fn in ((DEEPSEEK, zoo_deepseek), (JAMBA, zoo_jamba)):
         for k, n in timed(arch, fn, torch).items():
             total[k] += n
-    phase("14/16 zoo.seconds", **{a: f"{t:.1f}" for a, t in seconds.items()})
+    phase("14/17 zoo.seconds", **{a: f"{t:.1f}" for a, t in seconds.items()})
     return total
 
 
@@ -3391,7 +3477,7 @@ def knobs_train(torch) -> None:
     require(out["steps_done"] == steps and all(
         math.isfinite(x) for x in out["losses"]), f"train.run {out}")
     require(calls, "the attention was not streamed over KV chunks")
-    phase("15/16 knobs.train", config="h2o-danube-1.8b/FULL/bf16",
+    phase("15/17 knobs.train", config="h2o-danube-1.8b/FULL/bf16",
           via="launch.train", optimizer="AdamW", batch=B, seq=S,
           steps=steps, remat=True, attention="chunked",
           attention_chunked_calls=len(calls), losses=out["losses"],
@@ -3429,7 +3515,7 @@ def knobs_remat(torch) -> None:
     require(float(lon) == float(loff), f"remat loss {float(lon)} against "
             f"{float(loff)} without")
     require(rel <= 2e-5, f"remat gradients {rel:.3e} off by relative norm")
-    phase("15/16 knobs.remat", config="h2o-danube-1.8b/FULL/bf16", batch=B,
+    phase("15/17 knobs.remat", config="h2o-danube-1.8b/FULL/bf16", batch=B,
           seq=S, loss=float(lon), loss_equal=True,
           grads_rel_norm=f"{rel:.3e}", tol="2e-5",
           ms_remat_on=f"{ms_on:.1f}", ms_remat_off=f"{ms_off:.1f}",
@@ -3462,7 +3548,7 @@ def knobs_remat(torch) -> None:
     require(float(ls) == float(la), f"skipping chunks: loss {float(ls)} "
             f"against {float(la)} over every chunk")
     require(rel <= 2e-5, f"skipping chunks: gradients {rel:.3e} off")
-    phase("15/16 knobs.skip", config="h2o-danube-1.8b/FULL/bf16", batch=B,
+    phase("15/17 knobs.skip", config="h2o-danube-1.8b/FULL/bf16", batch=B,
           seq=S, remat=True, loss=float(ls), loss_equal=True,
           grads_rel_norm=f"{rel:.3e}", tol="2e-5",
           kv_chunk_calls_skipping=calls[True],
@@ -3499,7 +3585,7 @@ def knobs_gemma(torch) -> dict:
     B, S, steps = KNOBS_GENERATE
     n = zoo_generate(torch, arch, B, S, steps,
                      overrides={"softcap": GEMMA_CAP}, params=params,
-                     label="15/16 knobs.generate")
+                     label="15/17 knobs.generate")
     require(n == {"flash_attention": 28, "decode_attention": 868,
                   "ssm_scan": 0}, f"gemma-7b capped launches {n}")
     batch = zoo_batch(torch, cfg, B, S,
@@ -3567,7 +3653,7 @@ def knobs_gemma(torch) -> dict:
     # random weights the scores stay far below 50, and the cap moves the
     # logits about as far as the layers' rounding does, within the limit
     # (capped_vs_uncapped); phase 3 holds the cap, at scores past it
-    phase("15/16 knobs.generate", config=f"{arch}/FULL/bf16",
+    phase("15/17 knobs.generate", config=f"{arch}/FULL/bf16",
           softcap=GEMMA_CAP, step="first_decode", against="plain_versions",
           logits_rel_norm=f"{rel:.3e}", tol="2e-2",
           uncapped_logits_rel_norm=f"{rels[None]:.3e}",
@@ -3587,7 +3673,7 @@ def knobs_gemma(torch) -> dict:
     (lf, msf, pf), (lu, msu, pu) = evals[True], evals[False]
     require(math.isfinite(lf) and abs(lf - lu) <= 1e-3 * abs(lu),
             f"fused eval loss {lf} against {lu}")
-    phase("15/16 knobs.eval", config=f"{arch}/FULL/bf16", softcap=GEMMA_CAP,
+    phase("15/17 knobs.eval", config=f"{arch}/FULL/bf16", softcap=GEMMA_CAP,
           batch=B, seq=S, attention="chunked", loss_fused=lf,
           loss_unfused=lu, rel_diff=f"{abs(lf - lu) / abs(lu):.3e}",
           tol="1e-3", ms_fused=f"{msf:.1f}", ms_unfused=f"{msu:.1f}",
@@ -3628,7 +3714,7 @@ def knobs_gemma_cut(torch) -> None:
     (_, _, m), ms, peak = timed_run(torch, make_train_step(cfg, opt), params,
                                     state, batch)
     require(math.isfinite(float(m["loss"])), f"train step {m}")
-    phase("15/16 knobs.train", config=f"{arch}/FULL/bf16",
+    phase("15/17 knobs.train", config=f"{arch}/FULL/bf16",
           layers=KNOBS_CUT, params=cfg.param_count(), softcap=GEMMA_CAP,
           remat=True, batch=B, seq=S, loss_fused=lf, loss_unfused=lu,
           loss_rel_diff=f"{abs(lf - lu) / abs(lu):.3e}", loss_tol="1e-3",
@@ -3658,7 +3744,7 @@ def phase_knobs(torch) -> dict:
     timed("danube_remat_2048_skip_8192", knobs_remat, torch)
     n = timed("gemma_capped", knobs_gemma, torch)
     timed("gemma_cut_train", knobs_gemma_cut, torch)
-    phase("15/16 knobs.seconds", **seconds)
+    phase("15/17 knobs.seconds", **seconds)
     return n
 
 
@@ -3774,7 +3860,7 @@ def examples_serve() -> int:
     require(out["launches"] == 24 * out["decode_calls"],
             f"{out['launches']} decode launches for {out['decode_calls']} "
             "decode calls of 24 layers")
-    phase("16/16 examples.serve_multiplex",
+    phase("16/17 examples.serve_multiplex",
           config="h2o-danube-1.8b/FULL/bf16+granite-moe-1b-a400m/FULL/bf16",
           batch=8, capacity=128, n_req=out["n_req"],
           cut=f"n_req 150->{EXAMPLE_REQUESTS}", base_ms=out["base_ms"],
@@ -3813,7 +3899,7 @@ def examples_quickstart(torch) -> None:
     require(all(0.0 < a[3] <= 1.0 and 0.0 < a[2] <= 1.0 for a in plan)
             and math.isclose(out["total"], sum(a[3] for a in plan)),
             f"implausible plan {plan}")
-    phase("16/16 examples.quickstart", device="cuda",
+    phase("16/17 examples.quickstart", device="cuda",
           plan=json.dumps([[a[0], a[1], round(a[2], 3), round(a[3], 4)]
                            for a in plan]),
           total=f"{out['total']:.4f}",
@@ -3835,7 +3921,7 @@ def examples_train_lm(torch) -> None:
             f"resumed from {out['resumed_from']} after "
             f"{first['steps_done']} steps, then {last['steps_done']}")
     require(last["final_loss"] < first["losses"][0], "the loss did not fall")
-    phase("16/16 examples.train_lm", config="xlstm-350m/SMOKE",
+    phase("16/17 examples.train_lm", config="xlstm-350m/SMOKE",
           steps=EXAMPLE_TRAIN_STEPS, resumed_from=out["resumed_from"],
           loss_first=first["losses"][0], loss_at_evict=first["final_loss"],
           loss_final=last["final_loss"],
@@ -3852,6 +3938,297 @@ def phase_examples(torch) -> dict:
     examples_quickstart(torch)
     examples_train_lm(torch)
     return {"decode_attention": n}
+
+
+MESH_PROMPT = 1024
+MESH_STEPS = 31
+MESH_CAPACITY = MESH_PROMPT + MESH_STEPS + 1   # even: splits over 2 ranks
+MESH_CELLS = (("xlstm-350m", "decode_32k", "base"),
+              ("mistral-nemo-12b", "decode_32k", "base"),
+              ("granite-moe-1b-a400m", "train_4k", "opt"))
+
+
+def mesh_generate(torch, cfg, params, prompt, tokens=None, mesh=None):
+    """Prefill of `prompt` then MESH_STEPS decode steps: (every step's fp32
+    logits over the vocabulary, the greedy tokens).  With `tokens` (the
+    one-process run's) each step is fed those: teacher-forced, so that
+    the logits of every step compare.  With `mesh`, on it: the cache is
+    split by `cache_sharding`, the logits gathered."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import init_cache, make_decode_step, make_prefill
+    from repro_torch.models.steps import _copy_prefix_cache
+    from repro_torch.sharding import cache_sharding
+    from repro_torch.sharding.rules import distribute_tree
+    B, S0 = prompt.shape
+    V = cfg.vocab_size
+    full = (lambda t: gather_shards(torch, t) if isinstance(t, DTensor)
+            else t)
+    cache = init_cache(cfg, B, MESH_CAPACITY)
+    if mesh is not None:
+        cache = distribute_tree(cache, mesh, cache_sharding(mesh, cache),
+                                src_data_rank=None)
+    logits, pre = make_prefill(cfg)(params, {"tokens": prompt})
+    cache = _copy_prefix_cache(pre, cache)
+    decode = make_decode_step(cfg)
+    outs, toks = [], []
+    for i in range(MESH_STEPS + 1):
+        lf = full(logits)[:, :V].float()
+        outs.append(lf)
+        toks.append(lf.argmax(-1))
+        if i == MESH_STEPS:
+            break
+        feed = toks[-1] if tokens is None else tokens[:, i]
+        logits, cache = decode(params, cache, feed[:, None], S0 + i)
+    return torch.stack(outs), torch.stack(toks, dim=1)
+
+
+def gather_shards(torch, t):
+    """A DTensor's whole value, each split mesh dim gathered by
+    `all_gather_into_tensor` of the process-group API.  The card's torch
+    2.11 crashes (SIGSEGV) in the functional all-gather that
+    `full_tensor()` calls, over gloo on CUDA tensors; the model's path
+    needs no all-gather on these meshes (its collectives are
+    all-reduces), only this read of the logits does."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    mesh, local = t.device_mesh, t.to_local().contiguous()
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard):
+            n = mesh.shape[i]
+            buf = torch.empty((n * local.shape[0], *local.shape[1:]),
+                              dtype=local.dtype, device=local.device)
+            dist.all_gather_into_tensor(buf, local, group=mesh.get_group(i))
+            local = torch.cat(buf.chunk(n), dim=p.dim)
+    return local
+
+
+MESH_RUNS = {"tp": ((1, 2), 2), "seq": ((2, 1), 1)}    # mesh shape, batch
+
+
+def mesh_child(label: str, rank: int, port: int) -> None:
+    """A rank of mesh.tp or mesh.seq (two processes on the one card, gloo):
+    the one-process run, then the run on the mesh; rank 0 prints one JSON
+    line."""
+    import faulthandler
+    faulthandler.enable()
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.sharding import activation_mesh, param_sharding
+    from repro_torch.sharding.rules import distribute_params
+    for name in ("decode_attention", "flash_attention"):
+        if not _build.library_path(name).exists():
+            sys.exit(f"{name} is not built")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    cfg = get_config("h2o-danube-1.8b")
+    shape, B = MESH_RUNS[label]
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (B, MESH_PROMPT),
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(1), device="cuda")
+    with torch.no_grad():
+        want, toks = mesh_generate(torch, cfg, params, prompt)
+    mesh = make_mesh(shape, ("data", "model"))
+    t = time.perf_counter()
+    with activation_mesh(mesh):
+        distribute_params(params, mesh, param_sharding(
+            mesh, params, mode="serve"), src_data_rank=None)
+        local = {n: tuple(p.to_local().shape)
+                 for n, p in params.named_parameters()
+                 if n in ("blocks.0.attn.w_q", "blocks.0.attn.w_k")}
+        da.launches = fa.launches = 0
+        got, got_toks = mesh_generate(torch, cfg, params, prompt,
+                                      tokens=toks, mesh=mesh)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rel = ((got - want).flatten(1).norm(dim=1)
+           / want.flatten(1).norm(dim=1))
+    # a greedy token that differs must be a near tie of the one-process
+    # run: its top-two gap within twice the step's largest logit gap
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]                      # (steps, B)
+    delta = (got - want).abs().amax(-1)                    # (steps, B)
+    flips = (got_toks.T != toks.T)                         # (steps, B)
+    out = {"mesh": list(shape), "batch": B,
+           "max_rel": float(rel.max()), "first_rel": float(rel[0]),
+           "tokens_equal": bool((got_toks == toks).all()),
+           "mismatches": int(flips.sum()),
+           "unexplained": int((flips & (gap >= 2 * delta)).sum()),
+           "flip_gaps": [float(g) for g in gap[flips]],
+           "flip_deltas": [float(d) for d in delta[flips]],
+           "launches": {"flash_attention": fa.launches,
+                        "decode_attention": da.launches},
+           "local_w_q_w_k": local, "wall_s": wall}
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(out), flush=True)
+
+
+def mesh_dryrun_child() -> None:
+    """mesh.dryrun's child: MESH_CELLS on the 16x16 production mesh over a
+    fake group; one JSON line."""
+    sys.path.insert(0, SRC)
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import run_cell
+    recs = []
+    try:
+        for arch, shape, variant in MESH_CELLS:
+            recs.append(run_cell(arch, shape, variant=variant))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(json.dumps(recs), flush=True)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_launcher(torch) -> None:
+    """mesh.launcher: `launch.train.run` of h2o-danube-1.8b FULL without a
+    mesh, then on a (1, 1) mesh over NCCL (a group of one, which this
+    function owns); then at SMOKE (a FULL checkpoint is 18 GB with its
+    moments) the mesh run checkpointed at step 2 and resumed from it."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    kw = dict(steps=3, batch=8, seq=64, log_every=100)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        plain = train.run("h2o-danube-1.8b", smoke=False, **kw)["losses"]
+    plain_s = time.perf_counter() - t
+    ckpt = os.path.join(ROOT, "build", "mesh_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            meshed = train.run("h2o-danube-1.8b", smoke=False,
+                               mesh_shape=(1, 1), **kw)["losses"]
+        mesh_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            whole = train.run("h2o-danube-1.8b", mesh_shape=(1, 1),
+                              ckpt_dir=ckpt, ckpt_every=2, **kw)["losses"]
+            shutil.rmtree(os.path.join(ckpt, "step_00000003"))
+            resumed = train.run("h2o-danube-1.8b", mesh_shape=(1, 1),
+                                ckpt_dir=ckpt, ckpt_every=2, **kw)["losses"]
+        resume_s = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(meshed, plain))
+    require(len(meshed) == len(plain) == 3 and rel <= 1e-6,
+            f"mesh losses {meshed} against {plain}")
+    require(len(resumed) == 1 and abs(resumed[0] - whole[2])
+            <= 1e-6 * abs(whole[2]),
+            f"resumed {resumed} against step 3's {whole[2]}")
+    phase("17/17 mesh.launcher", config="h2o-danube-1.8b/FULL/bf16",
+          mesh="1x1", backend="nccl", batch=8, seq=64,
+          losses=json.dumps(meshed), plain_losses=json.dumps(plain),
+          max_rel=f"{rel:.3e}", bitwise=meshed == plain,
+          plain_s=f"{plain_s:.1f}", mesh_s=f"{mesh_s:.1f}")
+    phase("17/17 mesh.launcher.resume", config="h2o-danube-1.8b/SMOKE/bf16",
+          mesh="1x1", checkpoint_step=2, step3_loss=whole[2],
+          resumed_step3_loss=resumed[0], bitwise=resumed[0] == whole[2],
+          cut="FULL->SMOKE: a FULL checkpoint is 18 GB",
+          wall_s=f"{resume_s:.1f}")
+
+
+def phase_mesh(torch) -> dict:
+    """Phase 17: the dry-run child and the two ranks start first, the
+    launcher runs here meanwhile.  Returns the ranks' kernel launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    child = lambda code: subprocess.Popen(  # noqa: E731
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{code}"],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    t = time.perf_counter()
+    dry = child("mesh_dryrun_child()")
+    ranks = {}
+    for label in MESH_RUNS:            # both meshes at once, two ranks each
+        port = free_port()
+        ranks[label] = [child(f"mesh_child({label!r}, {r}, {port})")
+                        for r in range(2)]
+    procs = [p for pair in ranks.values() for p in pair] + [dry]
+    try:
+        mesh_launcher(torch)
+        outs = {label: [p.communicate(timeout=300) for p in pair]
+                for label, pair in ranks.items()}
+        dry_out = dry.communicate(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    res = {}
+    for label, pair in ranks.items():
+        for r, (p, (so, se)) in enumerate(zip(pair, outs[label])):
+            require(p.returncode == 0, f"mesh.{label} rank {r} exited "
+                    f"{p.returncode}: {se[-3000:]}")
+        res[label] = json.loads(outs[label][0][0].splitlines()[-1])
+    ranks_s = time.perf_counter() - t
+    launches = {"flash_attention": 0, "decode_attention": 0}
+    want = {"flash_attention": 24, "decode_attention": 24 * MESH_STEPS}
+    for label in ("tp", "seq"):
+        r = res[label]
+        phase(f"17/17 mesh.{label}", config="h2o-danube-1.8b/FULL/bf16",
+              mesh="x".join(map(str, r["mesh"])), backend="gloo",
+              batch=r["batch"], prompt=MESH_PROMPT, steps=MESH_STEPS,
+              max_rel_norm=f"{r['max_rel']:.3e}",
+              prefill_rel_norm=f"{r['first_rel']:.3e}",
+              tokens_equal=r["tokens_equal"],
+              token_mismatches=r["mismatches"],
+              mismatch_top2_gaps=json.dumps([round(g, 4) for g in
+                                             r["flip_gaps"]]),
+              mismatch_logit_deltas=json.dumps([round(d, 4) for d in
+                                                r["flip_deltas"]]),
+              launches_per_rank=json.dumps(r["launches"]),
+              local_shapes=json.dumps(r["local_w_q_w_k"]),
+              wall_s=f"{r['wall_s']:.1f}", note="gloo_via_host_not_a_tp_speed")
+        for k in launches:
+            launches[k] += 2 * r["launches"][k]      # both ranks
+    for label in ("tp", "seq"):
+        r = res[label]
+        require(r["launches"] == want, f"mesh.{label} launches "
+                f"{r['launches']}, want {want} on each rank")
+        require(r["max_rel"] <= 2e-2, f"mesh.{label} logits {r['max_rel']:.3e}"
+                " from the one-process run by relative norm")
+        require(r["unexplained"] == 0, f"mesh.{label}: {r['unexplained']} "
+                "greedy tokens differ where the one-process run's top two "
+                "are further apart than twice the step's logit gap")
+    so, se = dry_out
+    require(dry.returncode == 0, f"dry-run child exited {dry.returncode}: "
+            f"{se[-3000:]}")
+    for rec in json.loads(so.splitlines()[-1]):
+        require(rec["status"] == "ok", f"dry-run cell {rec['arch']} "
+                f"{rec['shape']}: {rec.get('error')}\n"
+                f"{rec.get('traceback', '')[-1500:]}")
+        phase("17/17 mesh.dryrun", cell=f"{rec['arch']}/{rec['shape']}",
+              variant=rec["variant"], mesh=rec["mesh"],
+              terms=json.dumps({k: float(f"{v:.4g}")
+                                for k, v in rec["terms"].items()}),
+              dominant=rec["dominant"],
+              peak_gib=f"{rec['memory']['peak_device_bytes'] / 2**30:.2f}",
+              collectives=json.dumps({k: int(v) for k, v in
+                                      rec["trace"]["collective_largest"]
+                                      .items()}),
+              trace_s=rec["trace_s"], model="h100_datasheet_peaks")
+    phase("17/17 mesh.seconds", children_wall_s=f"{ranks_s:.1f}")
+    return launches
 
 
 def main() -> int:
@@ -3908,7 +4285,8 @@ def main() -> int:
     zoo = timed("zoo", phase_zoo, torch)
     knobs = timed("knobs", phase_knobs, torch)
     examples = timed("examples", phase_examples, torch)
-    for part in (zoo, knobs, examples):
+    mesh = timed("mesh", phase_mesh, torch)
+    for part in (zoo, knobs, examples, mesh):
         for kernel, n in part.items():
             next(k for k in kernels if k["name"] == kernel)["launches"] += n
     phase("seconds", **seconds, total=f"{sum(seconds.values()):.1f}")

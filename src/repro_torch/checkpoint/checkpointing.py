@@ -12,6 +12,12 @@ evict/restart paths.  A tree is nested dicts (keys in sorted order, as JAX
 flattens them), lists and tuples with tensors at the leaves.  numpy has no
 bfloat16: a bf16 leaf is stored as its uint16 bit pattern and recorded as
 "bfloat16" in the manifest.
+
+Over a mesh a leaf may be a DTensor: `save` writes its full value, once,
+from rank 0 (every rank takes part in gathering it), so the format stays
+the single-device one, and `restore(..., shardings=)` reads every leaf
+whole and distributes it by the specs given: a checkpoint written on one
+mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -55,8 +61,22 @@ def _unflatten(struct, leaves):
     return build(struct)
 
 
+def _full(leaf):
+    """A DTensor's full value (a collective: every rank calls it); any
+    other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of an initialised
+    process group, or a process with none."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
-    t = leaf.detach().cpu()
+    t = _full(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
@@ -107,11 +127,16 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(ckpt_dir: str, like_tree, *, step: int | None = None,
-            device=None):
+            device=None, shardings=None):
     """(tree, step): the checkpoint at `step` (the latest by default) in
     the structure of `like_tree`, its leaves on `device` (the CUDA card
     unless `device="cpu"` is passed).  Raises ValueError unless every leaf
-    has the shape and dtype of `like_tree`'s leaf in its place."""
+    has the shape and dtype of `like_tree`'s leaf in its place (a DTensor
+    leaf's global shape).  With `shardings`, a tree of spec tuples
+    (`sharding.rules`) in like_tree's structure, each leaf read whole is
+    then distributed by its spec on the mesh that `activation_mesh`
+    installed (ValueError without one): every rank reads the same file, so
+    no values travel."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -139,7 +164,37 @@ def restore(ckpt_dir: str, like_tree, *, step: int | None = None,
             t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
                  if dtype == "bfloat16" else torch.from_numpy(arr))
             out.append(t.to(dev))
+    if shardings is not None:
+        from repro_torch.sharding.context import current_mesh
+        from repro_torch.sharding.rules import distribute
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError("restoring with shardings needs a mesh: "
+                             "install one with activation_mesh")
+        specs, _ = _flatten_specs(shardings)
+        if len(specs) != len(out):
+            raise ValueError(f"{len(specs)} shardings for {len(out)} leaves")
+        out = [t if s is None else distribute(t, mesh, s, src_data_rank=None)
+               for t, s in zip(out, specs)]
     return _unflatten(struct, out), step
+
+
+def _is_spec(x) -> bool:
+    """A spec tuple: each entry None, an axis name or a tuple of names."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str) or (
+            isinstance(e, tuple) and e and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def _flatten_specs(tree) -> tuple[list, None]:
+    """`_flatten`'s order over a tree whose leaves are spec tuples (or
+    None)."""
+    if tree is None or _is_spec(tree):
+        return [tree], None
+    items = ([tree[k] for k in sorted(tree)] if isinstance(tree, dict)
+             else list(tree))
+    return [l for t in items for l in _flatten_specs(t)[0]], None
 
 
 class AsyncCheckpointer:
@@ -154,9 +209,13 @@ class AsyncCheckpointer:
         self.last_saved: int | None = None
 
     def save(self, step: int, tree) -> None:
+        """Hand a host copy of `tree` to the writer thread.  DTensor leaves
+        are gathered first, on every rank; only rank 0 writes."""
         leaves, struct = _flatten(tree)
-        host = _unflatten(struct, [l.detach().to("cpu", copy=True)
+        host = _unflatten(struct, [_full(l).detach().to("cpu", copy=True)
                                    for l in leaves])
+        if not _writer():
+            return
         self.wait()
         self._thread = threading.Thread(
             target=self._do_save, args=(step, host), daemon=True)

@@ -1,1 +1,2 @@
-from .pipeline import DataConfig, TokenPipeline  # noqa: F401
+from .pipeline import (DataConfig, TokenPipeline,  # noqa: F401
+                       global_batch_to_device)

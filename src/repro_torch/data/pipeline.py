@@ -48,3 +48,28 @@ class TokenPipeline:
         toks[:, 1::2] = (toks[:, 0::2][:, : toks[:, 1::2].shape[1]]
                          * 31 + 7) % cfg.vocab_size
         return {"tokens": toks}
+
+
+def global_batch_to_device(batch: dict, sharding=None, *,
+                           device=None) -> dict:
+    """The batch's arrays as tensors on `device` (the CUDA card unless
+    `device="cpu"` is passed).  With `sharding` (a spec tuple of
+    `sharding.rules`, or a dict of them by key, e.g. `batch_sharding`'s)
+    each becomes a DTensor on the mesh that `activation_mesh` installed
+    (ValueError without one), rank 0's values scattered by
+    `distribute_tensor`."""
+    import torch
+
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    out = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    if sharding is None:
+        return out
+    from repro_torch.sharding.context import current_mesh
+    from repro_torch.sharding.rules import distribute
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("a sharded batch needs a mesh: install one with "
+                         "activation_mesh")
+    return {k: distribute(v, mesh, sharding[k] if isinstance(sharding, dict)
+                          else sharding) for k, v in out.items()}

@@ -67,6 +67,7 @@ constexpr int kStages = 3;                            // K/V ring depth
 constexpr int kTileBytes = 16384;                     // K + V of one tile
 constexpr int kMaxD = 256;
 constexpr int kMaxG = 8;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -136,7 +137,8 @@ template <typename T, int MAXG, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 decode_partial(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ kv_len,
-               T* __restrict__ out, float* __restrict__ part_m,
+               T* __restrict__ out, float* __restrict__ lse,
+               float* __restrict__ part_m,
                float* __restrict__ part_l, float* __restrict__ part_acc,
                int H, int Hk, int G, int d, int Skv, int split_len,
                int direct, int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -327,6 +329,9 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
     part_m[part + tid] = m_s[tid];
     part_l[part + tid] = l_s[tid];
   }
+  if (direct && lse != nullptr && tid < G)   // m and l are in log2 units
+    lse[static_cast<int64_t>(b) * H + kh * G + tid] =
+        (m_s[tid] + log2f(fmaxf(l_s[tid], 1e-30f))) * kLn2;
 }
 
 // One block per (query head, sequence): merges the splits below kv_len[b].
@@ -335,7 +340,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_combine(const float* __restrict__ part_m,
                const float* __restrict__ part_l,
                const float* __restrict__ part_acc,
-               const int* __restrict__ kv_len, T* __restrict__ out, int H,
+               const int* __restrict__ kv_len, T* __restrict__ out,
+               float* __restrict__ lse, int H,
                int Hk, int G, int d, int Skv, int split_len, int num_splits) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / G, g = h % G;
@@ -348,6 +354,8 @@ decode_combine(const float* __restrict__ part_m,
   for (int s = 0; s < ns; ++s)
     L += part_l[base + s * G] * exp2f(part_m[base + s * G] - M);
   L = fmaxf(L, 1e-30f);
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[static_cast<int64_t>(b) * H + h] = (M + log2f(L)) * kLn2;
   T* o = out + (static_cast<int64_t>(b) * H + h) * d;
   for (int col = threadIdx.x; col < d; col += blockDim.x) {
     float acc = 0.f;
@@ -361,7 +369,7 @@ decode_combine(const float* __restrict__ part_m,
 
 struct Args {
   const void *q, *k, *v, *kv_len;
-  void *out, *part_m, *part_l, *part_acc;
+  void *out, *lse, *part_m, *part_l, *part_acc;
   int B, H, Hk, d, Skv, split_len, num_splits;
   int64_t k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   float softcap;                                      // 0: none
@@ -386,7 +394,8 @@ int launch(const Args& a) {
       <<<dim3(a.num_splits, a.Hk, a.B), kThreads, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), static_cast<const int*>(a.kv_len),
-          static_cast<T*>(a.out), static_cast<float*>(a.part_m),
+          static_cast<T*>(a.out), static_cast<float*>(a.lse),
+          static_cast<float*>(a.part_m),
           static_cast<float*>(a.part_l), static_cast<float*>(a.part_acc),
           a.H, a.Hk, G, a.d, a.Skv, a.split_len, direct, a.k_sb, a.k_ss,
           a.k_sh, a.v_sb, a.v_ss, a.v_sh,
@@ -397,7 +406,8 @@ int launch(const Args& a) {
         static_cast<const float*>(a.part_m),
         static_cast<const float*>(a.part_l),
         static_cast<const float*>(a.part_acc),
-        static_cast<const int*>(a.kv_len), static_cast<T*>(a.out), a.H,
+        static_cast<const int*>(a.kv_len), static_cast<T*>(a.out),
+        static_cast<float*>(a.lse), a.H,
         a.Hk, G, a.d, a.Skv, a.split_len, a.num_splits);
   }
   return static_cast<int>(cudaGetLastError());
@@ -446,12 +456,15 @@ bool bad_args(int dtype, int B, int H, int Hk, int d) {
 // is cut into num_splits splits of split_len rows (a multiple of the tile's
 // rows, from repro_decode_occupancy).  With one split the output is written
 // at once; otherwise part_m and part_l hold B*Hk*num_splits*G floats,
-// part_acc d times as many, and a second launch merges them.  softcap: 0
+// part_acc d times as many, and a second launch merges them.  lse, when
+// not null, receives each (sequence, query head)'s log-sum-exp of its
+// scores (natural log, fp32, (B, H)): the merged row's max and sum, what a
+// caller needs to merge outputs over caches split across devices.  softcap: 0
 // for none, else the cap (scores cap*tanh(s/cap)).  Returns a cudaError_t:
 // the arguments' check or the launches' status.
 extern "C" int repro_decode_attention(
     int dtype, const void* q, const void* k, const void* v, const void* kv_len,
-    void* out, void* part_m, void* part_l, void* part_acc, int B, int H,
+    void* out, void* lse, void* part_m, void* part_l, void* part_acc, int B, int H,
     int Hk, int d, int Skv, int split_len, int num_splits, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, float softcap, void* stream) {
@@ -459,7 +472,7 @@ extern "C" int repro_decode_attention(
       num_splits < 1 || num_splits > 65535 || Hk > 65535 || B > 65535 ||
       !(softcap >= 0.f && softcap < INFINITY))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, kv_len, out, part_m, part_l, part_acc,
+  const Args a{q, k, v, kv_len, out, lse, part_m, part_l, part_acc,
                B, H, Hk, d, Skv, split_len, num_splits,
                k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, softcap,
                static_cast<cudaStream_t>(stream)};

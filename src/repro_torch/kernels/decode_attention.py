@@ -10,6 +10,10 @@ count and the kernel's occupancy so that the grid is at most one wave; when
 it gives one split, the first kernel writes the output and the merge is not
 launched.  `softcap` caps the scores as `repro`'s model attention does
 (cap*tanh(s/cap)); `repro`'s Pallas kernel has no cap.
+With `return_lse` the call also returns each (sequence, query head)'s
+log-sum-exp of its scores, (B, H) fp32: the merged softmax's max and sum,
+which a decode over a cache split across devices needs to merge the
+devices' outputs (`kernels.ops`).
 `decode_attention_plain` is the same function in plain PyTorch
 (`ref.decode_attention_reference` behind the kernel's checks); it serves CPU
 tensors and the tests, and is what the kernel is held against on the card.
@@ -98,22 +102,27 @@ def kv_lengths(kv_len, B: int, Skv: int, device: torch.device) -> torch.Tensor:
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, kv_len,
-                           softcap: float | None = None) -> torch.Tensor:
+                           softcap: float | None = None,
+                           return_lse: bool = False):
     """The kernel's function in plain PyTorch: the same checks, then
-    `ref.decode_attention_reference` (one softmax over the whole cache)."""
+    `ref.decode_attention_reference` (one softmax over the whole cache);
+    (out, lse (B, H) fp32) with return_lse."""
     check_shapes(q, k_cache, v_cache)
     check_softcap(softcap)
     lens = kv_lengths(kv_len, q.shape[0], k_cache.shape[1], q.device)
-    return decode_attention_reference(q, k_cache, v_cache, lens, softcap)
+    return decode_attention_reference(q, k_cache, v_cache, lens, softcap,
+                                      return_lse=return_lse)
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, kv_len,
-                          softcap: float | None = None) -> torch.Tensor:
+                          softcap: float | None = None,
+                          return_lse: bool = False):
     """Launch the CUDA kernel.  q: (B,1,H,d); caches (B,Skv,Hk,d), read in
     place through their strides (unit stride on d); kv_len int or (B,);
-    softcap None or a positive cap.  Raises on anything the kernel does
-    not take, or if the launch fails."""
+    softcap None or a positive cap; with return_lse, returns (out, lse
+    (B, H) fp32).  Raises on anything the kernel does not take, or if the
+    launch fails."""
     global launches
     check_shapes(q, k_cache, v_cache)
     cap = check_softcap(softcap)
@@ -136,6 +145,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     ns, split_len = split_plan(B, Hk, Skv, *_card_plan(lib, dev, q.dtype, H,
                                                        Hk, d))
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), device=dev, dtype=torch.float32)
+           if return_lse else None)
     parts = [None] * 3          # each split's (max, sum, acc), for the merge
     if ns > 1:
         m = torch.empty(B * Hk * ns * G, device=dev, dtype=torch.float32)
@@ -146,6 +157,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         err = lib.repro_decode_attention(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             *(None if t is None else t.data_ptr() for t in parts), B, H, Hk,
             d, Skv, split_len, ns, *k_cache.stride()[:3],
             *v_cache.stride()[:3], cap, stream)
@@ -153,7 +165,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError("decode_attention kernel launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _card_plan(lib: ctypes.CDLL, dev: torch.device, dtype: torch.dtype,
@@ -183,7 +195,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.repro_decode_attention
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [I] + [P] * 8 + [I] * 7 + [L] * 6 + [ctypes.c_float, P]
+        fn.argtypes = [I] + [P] * 9 + [I] * 7 + [L] * 6 + [ctypes.c_float, P]
         fn.restype = I
         occ = lib.repro_decode_occupancy
         occ.argtypes = [I] * 4 + [ctypes.POINTER(I)] * 3

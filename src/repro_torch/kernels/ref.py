@@ -58,10 +58,12 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
                                v_cache: torch.Tensor, kv_len,
-                               softcap: float | None = None) -> torch.Tensor:
+                               softcap: float | None = None,
+                               return_lse: bool = False):
     """q: (B,1,H,d) against (B,Skv,Hk,d) caches with kv_len valid entries
     (scalar or (B,)).  fp32 softmax, GQA by repeat, scores capped by
-    `cap_scores`; returns q.dtype."""
+    `cap_scores`; returns q.dtype, or (out, lse) with return_lse: lse
+    (B, H) fp32 the log-sum-exp of each row's visible scores."""
     B, _, H, d = q.shape
     Skv, Hk = k_cache.shape[1], k_cache.shape[2]
     G = H // Hk
@@ -73,7 +75,10 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     mask = torch.arange(Skv, device=q.device)[None, :] < lens[:, None]
     s = s.masked_fill(~mask[:, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)[:, :, 0]
+    return out
 
 
 def ssm_scan_reference(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,

@@ -21,6 +21,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ref import cap_scores
+from repro_torch.sharding.context import (axis_index, constrain, from_shard,
+                                          resolve, to_layout)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 # above this many scores a head, attention streams over KV chunks
@@ -123,12 +125,152 @@ def apply_rope(x: torch.Tensor, rope: tuple) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def unflatten(t: torch.Tensor, *shape) -> torch.Tensor:
+    """t (..., n * dh) reshaped to `shape` (..., n, dh).  Over a mesh (a
+    DTensor) whose axes that split the flat dim do not divide the n heads,
+    the flat dim is first replicated over them (the layout GSPMD gives
+    such heads): a split that cuts inside a head cannot be reshaped."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(t, DTensor):
+        last, pl = t.ndim - 1, list(t.placements)
+        split = [i for i, p in enumerate(pl)
+                 if isinstance(p, Shard) and p.dim == last]
+        if split and shape[-2] % math.prod(t.device_mesh.shape[i]
+                                           for i in split):
+            for i in split:
+                pl[i] = Replicate()
+            t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(shape)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for an output projection (w_o, w_down, out_proj, down_proj:
+    rows over `model` by the rules).  Over a mesh that splits w's rows,
+    each rank multiplies its own slice of x's last dim by its rows (their
+    FSDP split gathered) in fp32, and the ranks' partial products are
+    summed in fp32 and rounded to x's type once, as one device's GEMM
+    accumulates (summed in a bf16 model's type, each partial would round
+    on its own).  A local route: DTensor's own matmul rule flattens (B, S)
+    and, where the batch does not divide the data axes, splits that
+    flattened dim in a way its backward cannot undo.  On one device,
+    x @ w."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not (isinstance(w, DTensor) and any(
+            p == Shard(0) and n > 1
+            for p, n in zip(w.placements, w.device_mesh.shape))):
+        return x @ w
+    mesh = w.device_mesh
+    rows = [i for i, (p, n) in enumerate(zip(w.placements, mesh.shape))
+            if p == Shard(0) and n > 1]
+    xs = resolve(mesh, ("dp",) + (None,) * (x.ndim - 2) + ("tp",), x.shape)
+    x = to_layout(x, mesh, xs)
+    batch = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    if [i for i, p in enumerate(x.placements)
+            if p == Shard(x.ndim - 1)] != rows:
+        raise ValueError(f"x {x.placements} and w {w.placements} split "
+                         "the contraction differently")
+    w_pl = [Shard(0) if i in rows else Replicate()
+            for i in range(mesh.ndim)]
+    w_grad = [Shard(0) if i in rows else Partial() if i in batch
+              else Replicate() for i in range(mesh.ndim)]
+    wl = w.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    y = x.to_local().float() @ wl.float()
+    out_pl = [Shard(0) if i in batch else Partial() if i in rows
+              else Replicate() for i in range(mesh.ndim)]
+    y = from_shard(y, mesh, out_pl, tuple(x.shape[:-1]) + (w.shape[1],))
+    return constrain(y, *("dp",) + (None,) * (y.ndim - 1)).to(x.dtype)
+
+
+def split_last(t: torch.Tensor, n: int) -> tuple:
+    """t.chunk(n, dim=-1).  Over a mesh whose `model` axis alone splits t's
+    last dim in tp contiguous blocks, each part comes out split the same
+    way, by one all_to_all over `model`: the n * tp blocks of width w =
+    N / (n * tp) are already whole on their ranks (rank i holds blocks
+    i * n .. i * n + n - 1; block a * tp + j is part a's j-th), so each
+    goes to its new rank as it is, the data GSPMD moves for `repro`'s
+    split.  DTensor's own chunk of a split dim gathers t whole."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(t, DTensor) or "model" not in (
+            t.device_mesh.mesh_dim_names or ()):
+        return t.chunk(n, dim=-1)
+    import torch.distributed._functional_collectives as funcol
+    mesh, last = t.device_mesh, Shard(t.ndim - 1)
+    mi = mesh.mesh_dim_names.index("model")
+    tp = mesh.shape[mi]
+    split = [i for i, p in enumerate(t.placements) if p == last]
+    if tp == 1 or split != [mi] or t.shape[-1] % (n * tp):
+        return t.chunk(n, dim=-1)
+    i = mesh.get_local_rank("model")
+    local = t.to_local()
+    w = t.shape[-1] // (n * tp)
+    blocks = local.reshape(local.shape[:-1] + (n, w)).movedim(-2, 0)
+    # by new rank, then by part
+    order = sorted(range(n), key=lambda q: ((i * n + q) % tp, q))
+    send = blocks[torch.tensor(order, device=local.device)].contiguous()
+    sizes_out = [sum(1 for q in range(n) if (i * n + q) % tp == j)
+                 for j in range(tp)]
+    sizes_in = [sum(1 for q in range(n) if (s * n + q) % tp == i)
+                for s in range(tp)]
+    got = funcol.all_to_all_single_autograd(send, sizes_in, sizes_out,
+                                            mesh.get_group("model"))
+    shape = tuple(t.shape[:-1]) + (t.shape[-1] // n,)
+    return tuple(from_shard(got[a], mesh, t.placements, shape)
+                 for a in range(n))
+
+
+def elementwise(fn, t: torch.Tensor) -> torch.Tensor:
+    """fn(t) for an elementwise fn.  Over a mesh (a DTensor) fn runs on
+    each rank's shard, a partial sum first reduced (fn of a partial sum is
+    not a partial of fn): DTensor has no rule for some such ops' backward
+    (`log_sigmoid_backward`)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(t, DTensor):
+        return fn(t)
+    if any(isinstance(p, Partial) for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in t.placements])
+    return from_shard(fn(t.to_local()), t.device_mesh, t.placements,
+                      t.shape)
+
+
+class _WholeLastDimGrad(torch.autograd.Function):
+    """Identity whose gradient, over a mesh, has its last dim whole."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        last = Shard(g.ndim - 1)
+        if isinstance(g, DTensor) and last in g.placements:
+            g = g.redistribute(g.device_mesh, [
+                Replicate() if p == last else p for p in g.placements])
+        return g
+
+
+def merge_heads(t: torch.Tensor, *shape) -> torch.Tensor:
+    """t (..., n, dh) reshaped to `shape` (..., n * dh): `unflatten`'s
+    inverse.  Over a mesh the gradient reaching the merge has its last dim
+    whole, so that its backward can split the heads again however few
+    they are."""
+    return _WholeLastDimGrad.apply(t.reshape(shape))
+
+
+def split_heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """t (B, S, n * dh) as (B, S, n, dh), constrained ("dp", None, "tp",
+    None)."""
+    B, S, _ = t.shape
+    return constrain(unflatten(t, B, S, n, dh), "dp", None, "tp", None)
+
+
 def gqa_project_qkv(attn: GQA, x: torch.Tensor, cfg, rope: tuple):
-    B, S, _ = x.shape
     H, Hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ attn.w_q).reshape(B, S, H, dh)
-    k = (x @ attn.w_k).reshape(B, S, Hk, dh)
-    v = (x @ attn.w_v).reshape(B, S, Hk, dh)
+    q = split_heads(x @ attn.w_q, H, dh)
+    k = split_heads(x @ attn.w_k, Hk, dh)
+    v = split_heads(x @ attn.w_v, Hk, dh)
     return apply_rope(q, rope), apply_rope(k, rope), v
 
 
@@ -136,7 +278,7 @@ def cross_project_q(cross: CrossAttention, x: torch.Tensor, cfg):
     """Cross-attention queries (B, S, H, dh), with no rotary embedding, as
     `repro`'s `_apply_cross_attn` applies none."""
     B, S, _ = x.shape
-    return (x @ cross.w_q).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    return unflatten(x @ cross.w_q, B, S, cfg.num_heads, cfg.head_dim)
 
 
 def cross_project_kv(cross: CrossAttention, enc_out: torch.Tensor, cfg):
@@ -144,8 +286,8 @@ def cross_project_kv(cross: CrossAttention, enc_out: torch.Tensor, cfg):
     output, with no rotary embedding."""
     B, S, _ = enc_out.shape
     shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
-    return ((enc_out @ cross.w_k).reshape(shape),
-            (enc_out @ cross.w_v).reshape(shape))
+    return (unflatten(enc_out @ cross.w_k, *shape),
+            unflatten(enc_out @ cross.w_v, *shape))
 
 
 def mla_latent(attn: MLA, x: torch.Tensor, cfg, rope: tuple):
@@ -154,7 +296,7 @@ def mla_latent(attn: MLA, x: torch.Tensor, cfg, rope: tuple):
     `rope_table` at width dr) and cast back to the model type."""
     B, S, _ = x.shape
     c_kv = x @ attn.w_dkv
-    k_rope = (x @ attn.w_kr).reshape(B, S, 1, cfg.rope_head_dim)
+    k_rope = unflatten(x @ attn.w_kr, B, S, 1, cfg.rope_head_dim)
     return c_kv, apply_rope(k_rope, rope)
 
 
@@ -164,8 +306,8 @@ def mla_expand(attn: MLA, c_kv: torch.Tensor, k_rope: torch.Tensor, cfg):
     each up-projected from the latent in the model type."""
     B, Skv, _ = c_kv.shape
     H, dh, dr = cfg.num_heads, cfg.head_dim, cfg.rope_head_dim
-    k_nope = (c_kv @ attn.w_uk).reshape(B, Skv, H, dh)
-    v = (c_kv @ attn.w_uv).reshape(B, Skv, H, dh)
+    k_nope = unflatten(c_kv @ attn.w_uk, B, Skv, H, dh)
+    v = unflatten(c_kv @ attn.w_uv, B, Skv, H, dh)
     k = torch.cat([k_nope, k_rope.expand(B, Skv, H, dr)], dim=-1)
     return k, v
 
@@ -180,11 +322,11 @@ def mla_attend(attn: MLA, x: torch.Tensor, c_kv: torch.Tensor,
     `repro`."""
     B, Sq, _ = x.shape
     H, dh = cfg.num_heads, cfg.head_dim
-    q = (x @ attn.w_q).reshape(B, Sq, H, dh + cfg.rope_head_dim)
+    q = unflatten(x @ attn.w_q, B, Sq, H, dh + cfg.rope_head_dim)
     q = torch.cat([q[..., :dh], apply_rope(q[..., dh:], rope)], dim=-1)
     k, v = mla_expand(attn, c_kv, k_rope, cfg)
     o = (attend or attention)(q, k, v, **kw)
-    return o.reshape(B, Sq, H * dh) @ attn.w_o
+    return row_parallel(o.reshape(B, Sq, H * dh), attn.w_o)
 
 
 def pad_v(attend):
@@ -227,6 +369,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     softmax in fp32, probs cast to v's type, P.V accumulated in fp32 and
     cast to q's type.  v may be narrower than q and k (MLA).  Returns
     (B,Sq,H,v's width)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        # each rank attends over its own batch rows and heads: DTensor's
+        # rule for these einsums flattens a split dim on some torch
+        from repro_torch.kernels.ops import _local_heads
+        return _local_heads(lambda ql, kl, vl: attention(
+            ql, kl, vl, causal=causal, window=window, softcap=softcap,
+            force_chunked=force_chunked), q, k, v)
     B, Sq, H, dh = q.shape
     Skv = k.shape[1]
     if chunked(Sq, Skv, force_chunked):
@@ -380,4 +530,72 @@ ACTS = {"silu": silu, "gelu": gelu, "relu": F.relu}
 
 def ffn(params: FFN, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """GLU: act(x @ w_gate) * (x @ w_up) @ w_down, act a key of ACTS."""
-    return (ACTS[act](x @ params.w_gate) * (x @ params.w_up)) @ params.w_down
+    g = ACTS[act](constrain(x @ params.w_gate, "dp", None, "tp"))
+    u = constrain(x @ params.w_up, "dp", None, "tp")
+    return row_parallel(g * u, params.w_down)
+
+
+def write_rows(cache: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor,
+               new: torch.Tensor) -> None:
+    """cache[rows, slot] = new, in place: cache (B, S, ...), rows and slot
+    (B,), new (B, ...).  Over a mesh (a DTensor cache) each rank writes
+    its own batch rows, and over a cache split along its sequence only the
+    rank that holds row `slot` writes it; no rank gathers the cache."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(cache, DTensor):
+        cache[rows, slot] = new
+        return
+    from repro_torch.sharding.rules import spec_of
+    mesh = cache.device_mesh
+    spec = spec_of(cache)
+    cl = cache.to_local()
+    nl = to_layout(new, mesh, spec[:1] + spec[2:]).to_local()
+    Bl, Sl = cl.shape[0], cl.shape[1]
+    if spec[0] is not None:
+        bi = axis_index(mesh, spec[0])
+        slot = slot[bi * Bl:(bi + 1) * Bl]
+    idx = slot
+    if spec[1] is not None:
+        si = axis_index(mesh, spec[1])
+        idx = slot - si * Sl
+    own = (idx >= 0) & (idx < Sl)
+    safe = torch.clamp(idx, 0, Sl - 1)
+    local_rows = torch.arange(Bl, device=cl.device)
+    keep = own.reshape(-1, *([1] * (nl.dim() - 1)))
+    cl[local_rows, safe] = torch.where(keep, nl, cl[local_rows, safe])
+
+
+def write_prefix(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """cache[:, :, :n] = new (n = new.shape[2]) in place: cache (R, B, S,
+    ...), the sequence at dim 2.  Over a mesh (a DTensor cache) each rank
+    copies the rows of its own slice of the sequence, from `new` in the
+    cache's layout with its sequence whole."""
+    from torch.distributed.tensor import DTensor
+    n = new.shape[2]
+    if not isinstance(cache, DTensor):
+        cache[:, :, :n].copy_(new)
+        return
+    from repro_torch.sharding.rules import spec_of
+    mesh = cache.device_mesh
+    spec = spec_of(cache)
+    nl = to_layout(new, mesh, spec[:2] + (None,) + spec[3:]).to_local()
+    cl = cache.to_local()
+    Sl = cl.shape[2]
+    lo = 0
+    if spec[2] is not None:
+        lo = axis_index(mesh, spec[2]) * Sl
+    hi = min(lo + Sl, n)
+    if hi > lo:
+        cl[:, :, :hi - lo].copy_(nl[:, :, lo:hi])
+
+
+def live_rows(live: int, *caches: torch.Tensor) -> tuple:
+    """Each cache[:, :live] (a view): the rows a decode step can read.
+    Where any of them is split along its sequence over a mesh, all are
+    passed whole (the kernel reads each rank's rows below kv_len): cutting
+    a split cache would gather it."""
+    from torch.distributed.tensor import DTensor, Shard
+    if any(isinstance(c, DTensor) and Shard(1) in c.placements
+           for c in caches):
+        return caches
+    return tuple(c[:, :live] for c in caches)

@@ -61,6 +61,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import kv_lengths
+from repro_torch.sharding.context import constrain
 
 from . import layers as L
 from . import moe as M
@@ -73,7 +74,7 @@ MLSTM_PATTERN = (("mlstm", "none"),)
 # a position of the hybrid patterns (jamba's, and the one-position GQA ones)
 HYBRID_MIXERS = ("attn", "mamba")
 HYBRID_FFNS = ("dense", "moe")
-MOE_IMPLS = ("grouped", "dense")
+MOE_IMPLS = ("grouped", "dense", "a2a")
 ATTN_KINDS = ("gqa", "mla")
 
 
@@ -103,6 +104,7 @@ class ModelConfig:
     moe_d_ff: int = 0
     moe_renormalize: bool = True
     moe_impl: str = "grouped"         # grouped (production) | dense (oracle)
+                                      # | a2a (expert-parallel, over a mesh)
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
     # ssm / mlstm
@@ -155,10 +157,8 @@ class ModelConfig:
                 "cross-attention or an encoder (no config of `repro` has "
                 "them); see ROADMAP.md")
         if self.moe_impl not in MOE_IMPLS:
-            raise NotImplementedError(
-                f"{self.name}: moe_impl={self.moe_impl!r}; the port runs "
-                f"{MOE_IMPLS}: the all-to-all dispatch over a mesh waits for "
-                "the multi-device work (ROADMAP.md §1 item 6)")
+            raise ValueError(f"{self.name}: moe_impl={self.moe_impl!r} is "
+                             f"not one of {MOE_IMPLS}")
 
     @property
     def repeats(self) -> int:
@@ -353,7 +353,40 @@ def _scale(cfg: ModelConfig) -> torch.Tensor:
 
 
 def _embed(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor):
-    return params.embed[tokens] * _scale(cfg)
+    x = _lookup(params.embed, tokens)
+    return constrain(x, *("dp",) + (None,) * (x.ndim - 1)) * _scale(cfg)
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens].  Over a mesh that splits the vocab (`embed`'s
+    ("tp", "fsdp")), GSPMD's lookup: the row width's FSDP split is
+    gathered, each rank looks up the tokens its vocab rows hold (zero for
+    the rest) for its batch rows, and the ranks of the vocab split sum
+    (a Partial placement).  DTensor's own rule for it moves the tokens
+    into a masked partial that its backward cannot carry."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(table, DTensor) or Shard(0) not in table.placements:
+        return table[tokens]
+    from repro_torch.sharding.context import from_shard, resolve, to_layout
+    mesh = table.device_mesh
+    pl = [Replicate() if p == Shard(1) else p for p in table.placements]
+    t_spec = resolve(mesh, ("dp",) + (None,) * (tokens.ndim - 1),
+                     tokens.shape)
+    tok = to_layout(tokens, mesh, t_spec)
+    rows = list(tok.placements)
+    grad_pl = [Partial() if r == Shard(0) else p
+               for r, p in zip(rows, pl)]
+    w = table.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+    v0 = 0
+    for i, p in enumerate(pl):
+        if p == Shard(0):
+            v0 = v0 * mesh.shape[i] + mesh.get_local_rank(i)
+    v0 *= w.shape[0]
+    tl = tok.to_local()
+    mine = (tl >= v0) & (tl < v0 + w.shape[0])
+    x = w[torch.where(mine, tl - v0, 0)] * mine[..., None].to(w.dtype)
+    out_pl = [Partial() if p == Shard(0) else r for r, p in zip(rows, pl)]
+    return from_shard(x, mesh, out_pl, tuple(tokens.shape) + (table.shape[1],))
 
 
 def _embed_inputs(params: Transformer, cfg: ModelConfig, batch: dict):
@@ -366,7 +399,7 @@ def _embed_inputs(params: Transformer, cfg: ModelConfig, batch: dict):
     if cfg.frontend == "patch" and "patch_embeds" in batch:
         patches = torch.as_tensor(batch["patch_embeds"], device=dev)
         x = torch.cat([patches.to(cfg.dtype) * _scale(cfg), x], dim=1)
-    return x
+    return constrain(x, "dp", None, None)
 
 
 def _ffn(blk: Block, cfg: ModelConfig, x: torch.Tensor):
@@ -495,34 +528,35 @@ def _forward_decode(params: Transformer, cfg: ModelConfig, batch: dict,
             x = x + o
         elif mla:
             ckv, kr = L.mla_latent(blk.attn, h, cfg, at.rope)
-            c["ckv"][r][at.rows, at.slot] = ckv[:, 0]
-            c["kr"][r][at.rows, at.slot] = kr[:, 0]
+            L.write_rows(c["ckv"][r], at.rows, at.slot, ckv[:, 0])
+            L.write_rows(c["kr"][r], at.rows, at.slot, kr[:, 0])
             # keys and values expanded from the `live` rows the kernel reads
             # only: `repro` expanded the whole cache, whose rows past kv_len
             # are masked, to the same result
-            x = x + L.mla_attend(blk.attn, h, c["ckv"][r][:, :at.live],
-                                 c["kr"][r][:, :at.live], cfg, at.rope,
+            ckv, kr = L.live_rows(at.live, c["ckv"][r], c["kr"][r])
+            x = x + L.mla_attend(blk.attn, h, ckv, kr, cfg, at.rope,
                                  attend=mla_decode, kv_len=at.lens)
         else:
             q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, at.rope)
             kc, vc = c["k"][r], c["v"][r]
-            kc[at.rows, at.slot] = k[:, 0]
-            vc[at.rows, at.slot] = v[:, 0]
+            L.write_rows(kc, at.rows, at.slot, k[:, 0])
+            L.write_rows(vc, at.rows, at.slot, v[:, 0])
             # every Sq == 1 attention takes the decode kernel, MHA included
             # (`repro` sent MHA down its dense path: the same function);
             # `repro` caps the scores on a plain cache, never on the ring
-            o = ops.decode_attention(q, kc[:, :at.live], vc[:, :at.live],
+            o = ops.decode_attention(q, *L.live_rows(at.live, kc, vc),
                                      at.lens,
                                      None if at.ring else cfg.softcap)
-            x = x + o.reshape(B, 1, H * dh) @ blk.attn.w_o
+            x = x + L.row_parallel(o.reshape(B, 1, H * dh), blk.attn.w_o)
         if "xk" in c:
             # the encoder's keys and values, every source row visible
             h = L.rmsnorm(blk.norm_cross, x)
             q = L.cross_project_q(blk.cross, h, cfg)
             o = ops.decode_attention(q, c["xk"][r], c["xv"][r], at.src_lens)
-            x = x + o.reshape(B, 1, H * dh) @ blk.cross.w_o
+            x = x + L.row_parallel(o.reshape(B, 1, H * dh), blk.cross.w_o)
         if ffn != "none":
             x, _ = _ffn(blk, cfg, x)
+        x = constrain(x, "dp", None, None)
     x = L.rmsnorm(params.final_norm, x)
     return x[:, 0] @ params.lm_head, cache
 
@@ -549,8 +583,8 @@ def _encoder_forward(params: Transformer, cfg: ModelConfig, batch: dict,
         h = L.rmsnorm(blk.norm1, x)
         q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, rope)
         o = attend(q, k, v, causal=False)
-        x = x + o.reshape(B, S_src, cfg.num_heads * cfg.head_dim) \
-            @ blk.attn.w_o
+        x = x + L.row_parallel(
+            o.reshape(B, S_src, cfg.num_heads * cfg.head_dim), blk.attn.w_o)
         return _ffn(blk, cfg, x)[0]
 
     for blk in params.enc_blocks:
@@ -635,18 +669,18 @@ def _forward_blocks(params: Transformer, cfg: ModelConfig, batch: dict,
                 k, v = (torch.roll(t[:, -W:], S % W, dims=1)
                         for t in (k, v))
             new = {"k": k, "v": v}
-            x = x + o.reshape(B, S, H * dh) @ blk.attn.w_o
+            x = x + L.row_parallel(o.reshape(B, S, H * dh), blk.attn.w_o)
         if enc is not None:
             h = L.rmsnorm(blk.norm_cross, x)
             q = L.cross_project_q(blk.cross, h, cfg)
             xk, xv = L.cross_project_kv(blk.cross, enc, cfg)
             o = attend(q, xk, xv, causal=False)
             new.update(xk=xk, xv=xv)
-            x = x + o.reshape(B, S, H * dh) @ blk.cross.w_o
+            x = x + L.row_parallel(o.reshape(B, S, H * dh), blk.cross.w_o)
         if ffn != "none":
             x, a = _ffn(blk, cfg, x)
             aux = aux + a
-        return x, new, aux
+        return constrain(x, "dp", None, None), new, aux
 
     def repeat(x: torch.Tensor, aux: torch.Tensor, r: int):
         """Pattern repeat r (layers r * P .. r * P + P - 1) in train."""

@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from repro_torch.sharding.context import constrain
+
 from . import layers as L
 from .model import ModelConfig, forward, init_cache
 
@@ -70,13 +72,14 @@ def _copy_prefix_cache(src: tuple, dst: tuple) -> tuple:
     leaves (k, v, the cross keys and values xk, xv, and MLA's latent ckv
     and rotary key kr) written into dst's first rows (in place), a
     recurrent state (the mLSTM's C, n, m and conv, Mamba's h and conv)
-    taken whole."""
+    taken whole.  Over a mesh each rank writes its own rows of a DTensor
+    cache (`layers.write_prefix`)."""
     out = []
     for s, d in zip(src, dst):
         d = dict(d)
         for name, v in s.items():
             if name in ("k", "v", "xk", "xv", "ckv", "kr"):
-                d[name][:, :, :v.shape[2]].copy_(v)
+                L.write_prefix(d[name], v)
             else:
                 d[name] = v
         out.append(d)
@@ -93,13 +96,33 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     if Vpad > vocab_size:
         cols = torch.arange(Vpad, device=lf.device)
         lf = lf + torch.where(cols < vocab_size, 0.0, -1e9)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    from torch.distributed.tensor import DTensor, Shard
+    if isinstance(lf, DTensor) and Shard(lf.ndim - 1) in lf.placements:
+        lse, gold = _split_vocab_terms(lf, targets)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
     nll = lse - gold
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def _split_vocab_terms(lf, targets):
+    """(log-sum-exp, the target's logit) of fp32 logits lf (B, S, Vpad)
+    whose vocab is split over a mesh, as reductions over the split dim
+    (partial sums across its shards, as GSPMD computes them): DTensor's
+    logsumexp and gather need the vocab whole, and the gather's backward
+    allocates the global shape.  The same values as the one-device
+    path's: the max is detached (its gradient cancels), and a sum of one
+    logit and zeros is that logit."""
+    m = lf.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+    cols = torch.arange(lf.shape[-1], device=lf.device)
+    hit = cols == targets[..., None].long()
+    gold = torch.where(hit, lf, 0.0).sum(-1)
+    return constrain(lse, "dp", None), constrain(gold, "dp", None)
 
 
 def chunked_cross_entropy(x: torch.Tensor, lm_head: torch.Tensor,
@@ -163,10 +186,12 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
     n_p = _num_patches(cfg, batch)
     if cfg.fused_loss:
         hidden, aux = forward(params, cfg, batch, mode="train_hidden")
+        hidden = constrain(hidden, "dp", None, None)
         ce = chunked_cross_entropy(hidden[:, n_p:], params.lm_head, targets,
                                    cfg.vocab_size, mask)
     else:
         logits, aux = forward(params, cfg, batch, mode="train")
+        logits = constrain(logits, "dp", None, "tp")
         ce = cross_entropy(logits[:, n_p:], targets, cfg.vocab_size, mask)
     return ce + cfg.moe_aux_weight * aux, (ce, aux)
 

@@ -224,3 +224,48 @@ def test_padded_v_route_on_card(dtype, B, Skv, H, dq, dv, kv_len):
                                               v.float(), lens)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
                                atol=2e-5, rtol=CARD_RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Skv,H,Hk,d,kv_len,block_k", CASES)
+def test_plain_return_lse_is_the_scores_logsumexp(dtype, B, Skv, H, Hk, d,
+                                                  kv_len, block_k):
+    """return_lse: the plain version's lse equals a logsumexp of the
+    materialised fp32 scores over each row's visible keys, and its output
+    is the output without return_lse, bit for bit."""
+    q, k, v = to_torch(make_inputs(B, Skv, H, Hk, d, 4), dtype)
+    lens = torch.tensor(kv_len, dtype=torch.int32).expand(B)
+    out, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+    assert lse.shape == (B, H) and lse.dtype == torch.float32
+    assert torch.equal(out, ops.decode_attention(q, k, v, lens))
+    G = H // Hk
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, dim=2))[:, :, 0] / d**0.5
+    s = torch.where(torch.arange(Skv)[None, None] < lens[:, None, None], s,
+                    -torch.inf)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Skv,H,Hk,d,kv_len,block_k", CASES + [
+    (8, 4096, 32, 8, 128, [1, 17, 512, 1000, 2048, 3000, 4095, 4096], 512)])
+def test_kernel_return_lse_on_card(dtype, B, Skv, H, Hk, d, kv_len, block_k):
+    """The kernel's lse (one split and merged splits) against the plain
+    version's in fp32 at 2e-5; its output under the card's rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (t.cuda() for t in to_torch(make_inputs(B, Skv, H, Hk, d, 5),
+                                            dtype))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda").expand(B)
+    out, lse = ops.decode_attention(q, k, v, lens.contiguous(),
+                                    return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = da.decode_attention_plain(q.float(), k.float(),
+                                               v.float(), lens,
+                                               return_lse=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=CARD_RTOL[dtype])
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)

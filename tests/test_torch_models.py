@@ -123,16 +123,31 @@ def test_only_decode_is_ported(setup):
                 mode="sample")
 
 
-# ReLU (seamless-m4t-medium), the MoE pattern (granite-moe-1b-a400m) and
-# jamba's Mamba and hybrid super-blocks are ported now: MLA beside Mamba,
-# an mLSTM position mixed with attention and the all-to-all MoE dispatch
+# ReLU (seamless-m4t-medium), the MoE pattern (granite-moe-1b-a400m),
+# jamba's Mamba and hybrid super-blocks and the all-to-all MoE dispatch are
+# ported now: MLA beside Mamba and an mLSTM position mixed with attention
 # take their places
 @pytest.mark.parametrize("change", [{"pattern": (("mamba", "dense"),),
                                      "attn_kind": "mla"},
                                     {"pattern": (("attn", "dense"),
-                                                 ("mlstm", "none"))},
-                                    {"pattern": (("attn", "moe"),),
-                                     "moe_impl": "a2a"}])
+                                                 ("mlstm", "none"))}])
 def test_unported_model_variants_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(ARCH, smoke=True, **change)
+
+
+def test_a2a_without_a_mesh_is_the_grouped_dispatch():
+    """moe_impl="a2a" with no mesh installed: the whole model's train
+    logits and aux are the grouped dispatch's, bit for bit (`repro`'s
+    fallback, moe.py:160-162)."""
+    import dataclasses
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True),
+                              dtype=torch.float32)
+    model = init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 8),
+                                     generator=torch.Generator().manual_seed(1))}
+    want, want_aux = forward(model, cfg, batch, mode="train")
+    a2a = dataclasses.replace(cfg, moe_impl="a2a")
+    got, aux = forward(model, a2a, batch, mode="train")
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)

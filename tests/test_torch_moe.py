@@ -230,9 +230,23 @@ def test_shared_experts_match_jax(impl):
     assert sum(p.numel() for p in model.parameters()) == jcfg.param_count()
 
 
-def test_a2a_dispatch_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 6"):
-        get_config(ARCH, smoke=True, moe_impl="a2a")
+def test_a2a_dispatch_falls_back_where_experts_do_not_divide_model():
+    """`repro`'s fallbacks (moe.py:160-164): on a mesh whose model axis
+    does not divide the experts (granite SMOKE's 8 over 3), and with no
+    mesh at all, the a2a dispatch is the grouped one, bit for bit."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.sharding import activation_mesh
+    _, _, cfg, model = carry()
+    moe = model.blocks[0].ffn
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    want, want_aux = M.moe_grouped_dispatch(moe, x, cfg, 1.25)
+    assert cfg.num_experts % 3
+    with activation_mesh(AbstractMesh((1, 3), ("data", "model"))):
+        got, aux = M.moe_a2a_dispatch(moe, x, cfg, 1.25)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+    a2a = get_config(ARCH, smoke=True, moe_impl="a2a")
+    assert a2a.moe_impl == "a2a"
     assert get_config(ARCH, smoke=True).moe_impl == "grouped"
 
 

@@ -84,7 +84,9 @@ def test_every_module_imports_without_jax_or_repro():
         "       'configs.deepseek_v2_lite_16b',\n"
         "       'configs.jamba_1_5_large_398b', 'serving.kv_quant',\n"
         "       'runtime.compression', 'cluster.run', 'profiling.run',\n"
-        "       'core.simulator_legacy')}\n"
+        "       'core.simulator_legacy', 'launch.mesh', 'launch.dryrun',\n"
+        "       'launch.report', 'launch.trace_analysis', 'sharding',\n"
+        "       'sharding.rules', 'sharding.context', 'configs.shapes')}\n"
         "assert 'repro_torch.launch.serve' in names, names\n"
         "assert new <= set(names), new - set(names)\n"
         "import importlib.util\n"
