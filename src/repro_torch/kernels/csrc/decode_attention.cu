@@ -1,6 +1,7 @@
 // Flash-decoding attention for Hopper (sm_90a): one query token per sequence
 // against a KV cache laid out (B, Skv, Hk, d), G = H / Hk query heads per KV
-// head, fp32 online softmax, output in the input type (fp32 or bf16).
+// head, fp32 online softmax, output in the input type (fp32 or bf16), or
+// in fp32 where the caller asks for the log-sum-exp too.
 //
 // Replaces the Pallas TPU kernel `decode_attention` in
 // src/repro/kernels/decode_attention.py (body `_decode_kernel`).
@@ -131,13 +132,14 @@ constexpr int smem_bytes() {
 __device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
 
 // One block per (split, kv head, sequence).  MAXG bounds G (the loops break
-// at G); d <= DMAX.  With `direct` (one split) the block writes the output;
-// otherwise its partial (max, sum, acc) of each head.
-template <typename T, int MAXG, int DMAX>
+// at G); d <= DMAX.  With `direct` (one split) the block writes the output
+// (of type O: T, or float beside the lse); otherwise its partial (max, sum,
+// acc) of each head.
+template <typename T, typename O, int MAXG, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 decode_partial(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ kv_len,
-               T* __restrict__ out, float* __restrict__ lse,
+               O* __restrict__ out, float* __restrict__ lse,
                float* __restrict__ part_m,
                float* __restrict__ part_l, float* __restrict__ part_acc,
                int H, int Hk, int G, int d, int Skv, int split_len,
@@ -334,13 +336,14 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
         (m_s[tid] + log2f(fmaxf(l_s[tid], 1e-30f))) * kLn2;
 }
 
-// One block per (query head, sequence): merges the splits below kv_len[b].
-template <typename T>
+// One block per (query head, sequence): merges the splits below kv_len[b]
+// into an output of type O.
+template <typename O>
 __global__ void __launch_bounds__(kThreads)
 decode_combine(const float* __restrict__ part_m,
                const float* __restrict__ part_l,
                const float* __restrict__ part_acc,
-               const int* __restrict__ kv_len, T* __restrict__ out,
+               const int* __restrict__ kv_len, O* __restrict__ out,
                float* __restrict__ lse, int H,
                int Hk, int G, int d, int Skv, int split_len, int num_splits) {
   const int h = blockIdx.x, b = blockIdx.y;
@@ -356,7 +359,7 @@ decode_combine(const float* __restrict__ part_m,
   L = fmaxf(L, 1e-30f);
   if (lse != nullptr && threadIdx.x == 0)
     lse[static_cast<int64_t>(b) * H + h] = (M + log2f(L)) * kLn2;
-  T* o = out + (static_cast<int64_t>(b) * H + h) * d;
+  O* o = out + (static_cast<int64_t>(b) * H + h) * d;
   for (int col = threadIdx.x; col < d; col += blockDim.x) {
     float acc = 0.f;
     for (int s = 0; s < ns; ++s) {
@@ -376,11 +379,11 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int MAXG, int DMAX>
+template <typename T, typename O, int MAXG, int DMAX>
 int launch(const Args& a) {
   constexpr int smem = smem_bytes<T, MAXG, DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
-      decode_partial<T, MAXG, DMAX>,
+      decode_partial<T, O, MAXG, DMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a.split_len % Tile<T, DMAX>::kRows != 0 ||
@@ -390,11 +393,11 @@ int launch(const Args& a) {
   const int direct = a.num_splits == 1;
   const float rd = sqrtf(static_cast<float>(a.d));
   const float log2e = 1.4426950408889634f;
-  decode_partial<T, MAXG, DMAX>
+  decode_partial<T, O, MAXG, DMAX>
       <<<dim3(a.num_splits, a.Hk, a.B), kThreads, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), static_cast<const int*>(a.kv_len),
-          static_cast<T*>(a.out), static_cast<float*>(a.lse),
+          static_cast<O*>(a.out), static_cast<float*>(a.lse),
           static_cast<float*>(a.part_m),
           static_cast<float*>(a.part_l), static_cast<float*>(a.part_acc),
           a.H, a.Hk, G, a.d, a.Skv, a.split_len, direct, a.k_sb, a.k_ss,
@@ -402,27 +405,29 @@ int launch(const Args& a) {
           a.softcap > 0.f ? 1.f / (rd * a.softcap) : log2e / rd,
           a.softcap > 0.f ? a.softcap * log2e : 0.f);
   if (!direct) {
-    decode_combine<T><<<dim3(a.H, a.B), kThreads, 0, a.stream>>>(
+    decode_combine<O><<<dim3(a.H, a.B), kThreads, 0, a.stream>>>(
         static_cast<const float*>(a.part_m),
         static_cast<const float*>(a.part_l),
         static_cast<const float*>(a.part_acc),
-        static_cast<const int*>(a.kv_len), static_cast<T*>(a.out),
+        static_cast<const int*>(a.kv_len), static_cast<O*>(a.out),
         static_cast<float*>(a.lse), a.H,
         a.Hk, G, a.d, a.Skv, a.split_len, a.num_splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel's occupancy: resident blocks an SM and the tile's rows.
+// The kernel's occupancy: resident blocks an SM and the tile's rows (of
+// the instantiation that writes T; the one that writes fp32 beside the lse
+// differs only in its last stores, and takes the same plan).
 template <typename T, int MAXG, int DMAX>
 int occupancy(int* blocks, int* tile_rows) {
   constexpr int smem = smem_bytes<T, MAXG, DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
-      decode_partial<T, MAXG, DMAX>,
+      decode_partial<T, T, MAXG, DMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, decode_partial<T, MAXG, DMAX>, kThreads, smem);
+        blocks, decode_partial<T, T, MAXG, DMAX>, kThreads, smem);
   *tile_rows = Tile<T, DMAX>::kRows;
   return static_cast<int>(err);
 }
@@ -459,7 +464,9 @@ bool bad_args(int dtype, int B, int H, int Hk, int d) {
 // part_acc d times as many, and a second launch merges them.  lse, when
 // not null, receives each (sequence, query head)'s log-sum-exp of its
 // scores (natural log, fp32, (B, H)): the merged row's max and sum, what a
-// caller needs to merge outputs over caches split across devices.  softcap: 0
+// caller needs to merge outputs over caches split across devices; out is
+// then fp32 whatever the dtype, the partial output not yet rounded, so
+// that such a merge rounds once.  softcap: 0
 // for none, else the cap (scores cap*tanh(s/cap)).  Returns a cudaError_t:
 // the arguments' check or the launches' status.
 extern "C" int repro_decode_attention(
@@ -478,8 +485,9 @@ extern "C" int repro_decode_attention(
                static_cast<cudaStream_t>(stream)};
   return dispatch(H / Hk, d, [&](auto mg, auto md) {
     constexpr int MAXG = decltype(mg)::value, DMAX = decltype(md)::value;
-    return dtype == 0 ? launch<float, MAXG, DMAX>(a)
-                      : launch<__nv_bfloat16, MAXG, DMAX>(a);
+    if (dtype == 0) return launch<float, float, MAXG, DMAX>(a);
+    return lse != nullptr ? launch<__nv_bfloat16, float, MAXG, DMAX>(a)
+                          : launch<__nv_bfloat16, __nv_bfloat16, MAXG, DMAX>(a);
   });
 }
 

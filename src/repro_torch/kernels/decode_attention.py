@@ -13,7 +13,8 @@ launched.  `softcap` caps the scores as `repro`'s model attention does
 With `return_lse` the call also returns each (sequence, query head)'s
 log-sum-exp of its scores, (B, H) fp32: the merged softmax's max and sum,
 which a decode over a cache split across devices needs to merge the
-devices' outputs (`kernels.ops`).
+devices' outputs (`kernels.ops`); the output is then fp32 whatever q's
+type, not yet rounded, so that such a merge rounds once.
 `decode_attention_plain` is the same function in plain PyTorch
 (`ref.decode_attention_reference` behind the kernel's checks); it serves CPU
 tensors and the tests, and is what the kernel is held against on the card.
@@ -106,7 +107,7 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            return_lse: bool = False):
     """The kernel's function in plain PyTorch: the same checks, then
     `ref.decode_attention_reference` (one softmax over the whole cache);
-    (out, lse (B, H) fp32) with return_lse."""
+    (out fp32, lse (B, H) fp32) with return_lse."""
     check_shapes(q, k_cache, v_cache)
     check_softcap(softcap)
     lens = kv_lengths(kv_len, q.shape[0], k_cache.shape[1], q.device)
@@ -120,9 +121,9 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           return_lse: bool = False):
     """Launch the CUDA kernel.  q: (B,1,H,d); caches (B,Skv,Hk,d), read in
     place through their strides (unit stride on d); kv_len int or (B,);
-    softcap None or a positive cap; with return_lse, returns (out, lse
-    (B, H) fp32).  Raises on anything the kernel does not take, or if the
-    launch fails."""
+    softcap None or a positive cap.  Returns (B,1,H,d) in q's type; with
+    return_lse, (out (B,1,H,d) fp32, lse (B,H) fp32).  Raises on anything
+    the kernel does not take, or if the launch fails."""
     global launches
     check_shapes(q, k_cache, v_cache)
     cap = check_softcap(softcap)
@@ -144,7 +145,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     lib = _library()
     ns, split_len = split_plan(B, Hk, Skv, *_card_plan(lib, dev, q.dtype, H,
                                                        Hk, d))
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else None)
     lse = (torch.empty((B, H), device=dev, dtype=torch.float32)
            if return_lse else None)
     parts = [None] * 3          # each split's (max, sum, acc), for the merge

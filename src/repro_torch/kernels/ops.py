@@ -65,7 +65,7 @@ def _decode_op(q: Tensor, k_cache: Tensor, v_cache: Tensor, kv_len: Tensor,
 def _(q, k_cache, v_cache, kv_len, softcap, return_lse):
     _decode.check_shapes(q, k_cache, v_cache)
     B, _, H, _ = q.shape
-    return (torch.empty_like(q),
+    return (torch.empty_like(q, dtype=torch.float32 if return_lse else None),
             q.new_empty((B, H) if return_lse else (0,), dtype=torch.float32))
 
 
@@ -161,8 +161,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      return_lse: bool = False):
     """q: (B,1,H,d); caches: (B,Skv,Hk,d); kv_len: valid entries (int or
     (B,), each >= 1); softcap: scores cap*tanh(s/cap), or None.  Returns
-    (B,1,H,d) in q.dtype; with return_lse, (out, lse (B,H) fp32), the
-    log-sum-exp of each row's scores."""
+    (B,1,H,d) in q.dtype; with return_lse, (out (B,1,H,d) fp32, not yet
+    rounded to q's type, lse (B,H) fp32), the log-sum-exp of each row's
+    scores: what a merge over a cache split across devices needs to round
+    once."""
     if _is_dtensor(q, k_cache):
         return _sharded_decode(q, k_cache, v_cache, kv_len, softcap,
                                return_lse)
@@ -289,7 +291,11 @@ def _sharded_decode(q, k_cache, v_cache, kv_len, softcap, return_lse):
     lse = -inf) and the ranks merge: the max of the lse over those axes,
     then the sums of exp(lse - max) * out and of exp(lse - max), the
     all-reduces GSPMD lowers `repro`'s constrain(scores, "dp", "tp", None,
-    None) to.  The query is replicated over those axes: one token a row."""
+    None) to.  The ranks' outputs come in fp32 and the merged one is
+    rounded to q's type once, as `repro`'s fp32 partial sums are, and as
+    the kernel's own split merges them on one device.  The query is
+    replicated over those axes: one token a row.  With return_lse the
+    output is fp32, as from the one-device op."""
     import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor import Shard
     from repro_torch.sharding.context import (axis_index, from_shard,
@@ -329,11 +335,13 @@ def _sharded_decode(q, k_cache, v_cache, kv_len, softcap, return_lse):
             m = funcol.all_reduce(m, "max", mesh.get_group(a))
         m = torch.where(torch.isfinite(m), m, 0.0)
         w = torch.exp(lse - m)                              # (Bl, Hl)
-        num, den = o.float() * w[:, None, :, None], w
+        num, den = o * w[:, None, :, None], w
         for a in seq_axes:
             num = funcol.all_reduce(num, "sum", mesh.get_group(a))
             den = funcol.all_reduce(den, "sum", mesh.get_group(a))
-        out = (num / den[:, None, :, None]).to(q.dtype)
+        out = num / den[:, None, :, None]
+        if not return_lse:
+            out = out.to(q.dtype)                   # the one rounding
         lse = m + torch.log(den)
     out = from_shard(out, mesh, q.placements, q.shape)
     if not return_lse:

@@ -62,8 +62,9 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
                                return_lse: bool = False):
     """q: (B,1,H,d) against (B,Skv,Hk,d) caches with kv_len valid entries
     (scalar or (B,)).  fp32 softmax, GQA by repeat, scores capped by
-    `cap_scores`; returns q.dtype, or (out, lse) with return_lse: lse
-    (B, H) fp32 the log-sum-exp of each row's visible scores."""
+    `cap_scores`; returns q.dtype, or (out, lse) with return_lse: out
+    fp32, not rounded to q's type, and lse (B, H) fp32 the log-sum-exp of
+    each row's visible scores."""
     B, _, H, d = q.shape
     Skv, Hk = k_cache.shape[1], k_cache.shape[2]
     G = H // Hk
@@ -75,10 +76,10 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     mask = torch.arange(Skv, device=q.device)[None, :] < lens[:, None]
     s = s.masked_fill(~mask[:, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)[:, :, 0]
-    return out
+    return out.to(q.dtype)
 
 
 def ssm_scan_reference(dt: torch.Tensor, x: torch.Tensor, B_ssm: torch.Tensor,

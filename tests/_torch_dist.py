@@ -3,6 +3,7 @@
 ranks on the CPU; rank 0 writes the case's results as JSON to OUT.  INPUTS
 is a pickle the test wrote (numpy weights and inputs, `repro`'s
 results)."""
+import contextlib
 import json
 import os
 import pickle
@@ -14,7 +15,9 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)             # chip_smoke's same-inputs check
 
 WORLD = {"train": 4, "moe": 4, "decode": 2}
 
@@ -117,55 +120,113 @@ def case_moe(inp: dict) -> dict:
     return out
 
 
-def case_decode(inp: dict) -> dict:
-    """Prefill and decode under (1, 2) and (2, 1) meshes at B1 (the second
-    splits the cache's sequence over `data`) and without a mesh, on
-    `repro`'s weights: each mesh's logits, and their distance from the
-    unsharded port's."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_mesh
+def decode_run(cfg, case: dict, toks, S0: int, mesh=None, check=None):
+    """Prefill of toks[:, :S0], then decode teacher-forced through the rest,
+    on `case`'s weights (`repro`'s, through params_from_jax), on `mesh` or
+    on one device: (every step's logits, stacked; what `check(params)`,
+    a context the run goes through when given, yielded)."""
     from repro_torch.models import init_cache
     from repro_torch.models.convert import params_from_jax
     from repro_torch.models.steps import (_copy_prefix_cache,
                                           make_decode_step, make_prefill)
-    from repro_torch.sharding import (activation_mesh, cache_sharding,
-                                      param_sharding)
+    from repro_torch.sharding import cache_sharding, param_sharding
     from repro_torch.sharding.rules import distribute_params, distribute_tree
+    steps = toks.shape[1] - S0
+    params = params_from_jax(case["params"], cfg, device="cpu")
+    cache = init_cache(cfg, 1, S0 + steps, device="cpu")
+    if mesh is not None:
+        distribute_params(params, mesh, param_sharding(mesh, params,
+                                                       mode="serve"))
+        cache = distribute_tree(cache, mesh, cache_sharding(mesh, cache),
+                                src_data_rank=None)
+    with check(params) if check else contextlib.nullcontext() as rec:
+        logits, pre = make_prefill(cfg)(params, {"tokens": toks[:, :S0]})
+        cache = _copy_prefix_cache(pre, cache)
+        decode = make_decode_step(cfg)
+        outs = [_f(logits)]
+        for i in range(steps):
+            logits, cache = decode(params, cache,
+                                   toks[:, S0 + i:S0 + i + 1], S0 + i)
+            outs.append(_f(logits))
+    return np.stack(outs), rec
+
+
+@contextlib.contextmanager
+def bf16_partials():
+    """The merge before it rounded once: each rank's partial output of the
+    sequence-split decode rounded to q's type before the ranks merge it
+    (`ops._sharded_decode` reaches `ops.decode_attention` with
+    return_lse only there)."""
+    from repro_torch.kernels import ops
+    inner = ops.decode_attention
+
+    def rounded(q, k_cache, v_cache, kv_len, softcap=None, return_lse=False):
+        res = inner(q, k_cache, v_cache, kv_len, softcap, return_lse)
+        return (res[0].to(q.dtype), res[1]) if return_lse else res
+    ops.decode_attention = rounded
+    try:
+        yield
+    finally:
+        ops.decode_attention = inner
+
+
+def case_decode(inp: dict) -> dict:
+    """Prefill and decode under (1, 2) and (2, 1) meshes at B1 (the second
+    splits the cache's sequence over `data`) and without a mesh, on
+    `repro`'s weights: each mesh's logits, and their distance from the
+    unsharded port's.  Then, under "bf16", h2o-danube-1.8b in bf16 on
+    both meshes through chip_smoke's same-inputs check of the cross-rank
+    reductions, and on (2, 1) again with the ranks' partial outputs
+    rounded to bf16 before the merge (`bf16_partials`): each run's
+    distance from the unsharded port's logits and each site's worst
+    layer."""
+    import dataclasses
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import activation_mesh
     out = {}
+    S0 = inp["prefix"]
     for arch, case in inp["decode"].items():
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   dtype=torch.float32, **case["overrides"])
         toks = torch.from_numpy(case["tokens"])
-        S0, steps = inp["prefix"], toks.shape[1] - inp["prefix"]
-
-        def run(mesh):
-            params = params_from_jax(case["params"], cfg, device="cpu")
-            cache = init_cache(cfg, 1, S0 + steps, device="cpu")
-            if mesh is not None:
-                distribute_params(params, mesh, param_sharding(
-                    mesh, params, mode="serve"))
-                cache = distribute_tree(cache, mesh, cache_sharding(
-                    mesh, cache), src_data_rank=None)
-            logits, pre = make_prefill(cfg)(params, {"tokens": toks[:, :S0]})
-            cache = _copy_prefix_cache(pre, cache)
-            decode = make_decode_step(cfg)
-            outs = [_f(logits)]
-            for i in range(steps):
-                logits, cache = decode(params, cache, toks[:, S0 + i:S0 + i + 1],
-                                       S0 + i)
-                outs.append(_f(logits))
-            return np.stack(outs)
-
-        want = run(None)
+        want = decode_run(cfg, case, toks, S0)[0]
         for shape in ((1, 2), (2, 1)):
             mesh = make_mesh(shape, ("data", "model"), device="cpu")
             with activation_mesh(mesh):
-                got = run(mesh)
+                got = decode_run(cfg, case, toks, S0, mesh)[0]
             out[f"{arch}/{shape}"] = {
                 "logits": got.tolist(),
                 "unsharded": float(np.abs(got - want).max()
                                    / np.abs(want).max())}
+    arch = "h2o-danube-1.8b"
+    case = inp["decode"][arch]
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype=torch.bfloat16)
+    toks = torch.from_numpy(case["tokens"])
+    want = decode_run(cfg, case, toks, S0)[0]
+    bf16 = out["bf16"] = {}
+
+    def check(params):
+        return chip_smoke.same_inputs_check(
+            torch, params, cfg.num_layers,
+            lambda t: chip_smoke.gather_shards(torch, t))
+    for name, shape, old in (("(2, 1)", (2, 1), False),
+                             ("(1, 2)", (1, 2), False),
+                             ("(2, 1)/bf16_partials", (2, 1), True)):
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        with activation_mesh(mesh), \
+                bf16_partials() if old else contextlib.nullcontext():
+            got, rec = decode_run(cfg, case, toks, S0, mesh, check)
+        worst = chip_smoke.same_inputs_worst(rec)
+        bf16[name] = {
+            "bitwise": bool(np.array_equal(got, want)),
+            "unsharded": float(np.abs(got - want).max()
+                               / np.abs(want).max()),
+            "worst": worst,
+            "problems": chip_smoke.same_inputs_problems(worst),
+            "layers": chip_smoke.same_inputs_layers(rec)}
     return out
 
 

@@ -183,21 +183,18 @@ def test_a2a_moe_against_dense_and_repro_a2a(tmp_path):
                                rtol=MOE_A2A_TOL)
 
 
-def test_decode_over_split_heads_and_split_sequence(tmp_path):
-    """Prefill and decode through `ops` on (1, 2) (heads over `model`) and
-    (2, 1) at B1 (the cache's sequence over `data`, the kernel's partial
-    softmaxes merged across ranks), with the plain versions on the CPU, on
-    `repro`'s weights: the logits against `repro`'s own prefill and decode
-    on the same mesh (two host devices) and against the unsharded port, at
-    2e-5 of the logits' scale.  h2o-danube-1.8b SMOKE decodes 22 steps
-    past its window of 16, so its ring wraps across the ranks' slices;
-    deepseek-v2-lite-16b SMOKE takes the MLA route; xlstm-350m SMOKE at
-    one head splits that head's mLSTM cell over `model`."""
+@pytest.fixture(scope="module")
+def decode_ranks(tmp_path_factory):
+    """One spawn of two gloo ranks for the decode cases
+    (tests/_torch_dist.py's case_decode), with `repro`'s prefill and
+    decode on the same meshes run meanwhile: (the ranks' results,
+    `repro`'s logits by "arch/mesh")."""
     import dataclasses
     import jax
     import jax.numpy as jnp
     from repro.configs import get_config
     from repro.models import init_params
+    tmp_path = tmp_path_factory.mktemp("decode")
     rng = np.random.default_rng(0)
     prefix = 6
     decode = {}
@@ -256,13 +253,61 @@ def test_decode_over_split_heads_and_split_sequence(tmp_path):
     """, devices=2)
     res = spawn("decode", {"decode": decode, "prefix": prefix}, tmp_path)
     jax_wait(proc)
-    want = np.load(want_path)
-    assert len(res) == 6 and sorted(res) == sorted(want.files)
+    return res, dict(np.load(want_path))
+
+
+def test_decode_over_split_heads_and_split_sequence(decode_ranks):
+    """Prefill and decode through `ops` on (1, 2) (heads over `model`) and
+    (2, 1) at B1 (the cache's sequence over `data`, the kernel's partial
+    softmaxes merged across ranks), with the plain versions on the CPU, on
+    `repro`'s weights in fp32: the logits against `repro`'s own prefill
+    and decode on the same mesh (two host devices) and against the
+    unsharded port, at 2e-5 of the logits' scale.  h2o-danube-1.8b SMOKE
+    decodes 22 steps past its window of 16, so its ring wraps across the
+    ranks' slices; deepseek-v2-lite-16b SMOKE takes the MLA route;
+    xlstm-350m SMOKE at one head splits that head's mLSTM cell over
+    `model`."""
+    res, want = decode_ranks
+    res = {k: v for k, v in res.items() if k != "bf16"}
+    assert len(res) == 6 and sorted(res) == sorted(want)
     for name, r in res.items():
         got, ref = np.asarray(r["logits"]), want[name]
         err = float(np.abs(got - ref).max() / np.abs(ref).max())
         assert err < DECODE_TOL, (name, "repro", err)
         assert r["unsharded"] < DECODE_TOL, (name, "unsharded", r)
+
+
+def test_bf16_decode_rounds_once_over_split_sequence_and_heads(decode_ranks):
+    """h2o-danube-1.8b SMOKE in bf16 (`repro`'s weights cast by
+    params_from_jax), prefill and decode on (2, 1) and (1, 2): on (2, 1)
+    the logits equal the unsharded port's bit for bit (the ranks' partial
+    outputs merge in fp32 and round once, as one device's softmax does),
+    and on both meshes every cross-rank reduction (the decode merge,
+    `w_o` and `w_down`'s row-parallel products, the vocab-split lookup)
+    meets chip_smoke's same-inputs bound against the one-device op on the
+    same inputs, at every layer.  Not held against `repro`'s jitted run:
+    its compiled bf16 keeps some intermediates in fp32 (ROADMAP.md F7),
+    which makes that a relative-norm check only; the fp32 cases above
+    hold the port to `repro`."""
+    res = decode_ranks[0]["bf16"]
+    assert res["(2, 1)"]["bitwise"], res["(2, 1)"]["unsharded"]
+    for mesh in ("(2, 1)", "(1, 2)"):
+        worst = res[mesh]["worst"]
+        assert sorted(worst) == ["decode", "lookup", "w_down", "w_o"], worst
+        assert res[mesh]["problems"] == [], (mesh, res[mesh]["problems"])
+        assert len(res[mesh]["layers"]["decode"]) == 2, res[mesh]["layers"]
+
+
+def test_same_inputs_check_sees_bf16_partials(decode_ranks):
+    """The merge as it was before it rounded once, re-created in the ranks
+    (tests/_torch_dist.py's bf16_partials: each rank's partial output of
+    the sequence-split decode rounded to bf16 before the merge), fails
+    the same-inputs bound on (2, 1) at the decode merge, and only there:
+    the check sees a second rounding."""
+    r = decode_ranks[0]["bf16"]["(2, 1)/bf16_partials"]
+    assert not r["bitwise"]
+    assert [p.split(" ")[0] for p in r["problems"]] == ["decode"], r
+    assert r["worst"]["decode"]["ulps"] > 1, r["worst"]
 
 
 def test_ssm_mixers_over_the_model_axis(train_ranks):

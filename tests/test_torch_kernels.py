@@ -231,13 +231,15 @@ def test_padded_v_route_on_card(dtype, B, Skv, H, dq, dv, kv_len):
 def test_plain_return_lse_is_the_scores_logsumexp(dtype, B, Skv, H, Hk, d,
                                                   kv_len, block_k):
     """return_lse: the plain version's lse equals a logsumexp of the
-    materialised fp32 scores over each row's visible keys, and its output
-    is the output without return_lse, bit for bit."""
+    materialised fp32 scores over each row's visible keys; its output is
+    fp32 whatever q's type, the fp32 softmax times V at 2e-5, and rounded
+    to q's type it is the output without return_lse, bit for bit."""
     q, k, v = to_torch(make_inputs(B, Skv, H, Hk, d, 4), dtype)
     lens = torch.tensor(kv_len, dtype=torch.int32).expand(B)
     out, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
     assert lse.shape == (B, H) and lse.dtype == torch.float32
-    assert torch.equal(out, ops.decode_attention(q, k, v, lens))
+    assert out.shape == (B, 1, H, d) and out.dtype == torch.float32
+    assert torch.equal(out.to(q.dtype), ops.decode_attention(q, k, v, lens))
     G = H // Hk
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                      k.float().repeat_interleave(G, dim=2))[:, :, 0] / d**0.5
@@ -245,6 +247,44 @@ def test_plain_return_lse_is_the_scores_logsumexp(dtype, B, Skv, H, Hk, d,
                     -torch.inf)
     np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
                                atol=1e-5, rtol=1e-6)
+    pv = torch.einsum("bhk,bkhd->bhd", torch.softmax(s, -1),
+                      v.float().repeat_interleave(G, dim=2))
+    np.testing.assert_allclose(out[:, 0].numpy(), pv.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("return_lse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_custom_op_fake_dtypes(dtype, return_lse):
+    """The custom op's fake implementation, on meta tensors and under a
+    fake-tensor mode: out in q's type without return_lse and fp32 with it
+    (the kernel's and the plain version's types), lse (B, H) fp32 or
+    empty."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    B, Skv, H, Hk, d = 2, 64, 8, 2, 32
+    dt = getattr(torch, dtype)
+    want = torch.float32 if return_lse else dt
+
+    def check(q, k, v, lens):
+        out, lse = torch.ops.repro_torch.decode_attention(q, k, v, lens,
+                                                          None, return_lse)
+        assert out.shape == (B, 1, H, d) and out.dtype == want
+        assert lse.dtype == torch.float32
+        assert lse.shape == ((B, H) if return_lse else (0,))
+
+    def inputs(device):
+        return (torch.empty((B, 1, H, d), dtype=dt, device=device),
+                torch.empty((B, Skv, Hk, d), dtype=dt, device=device),
+                torch.empty((B, Skv, Hk, d), dtype=dt, device=device),
+                torch.full((B,), Skv, dtype=torch.int32, device=device))
+
+    check(*inputs("meta"))
+    with FakeTensorMode():
+        check(*inputs("cpu"))
+    out, lse = torch.ops.repro_torch.decode_attention(
+        *to_torch(make_inputs(B, Skv, H, Hk, d, 6), dtype),
+        torch.full((B,), Skv, dtype=torch.int32), None, return_lse)
+    assert out.dtype == want and lse.dtype == torch.float32
 
 
 @pytest.mark.cuda
@@ -253,7 +293,8 @@ def test_plain_return_lse_is_the_scores_logsumexp(dtype, B, Skv, H, Hk, d,
     (8, 4096, 32, 8, 128, [1, 17, 512, 1000, 2048, 3000, 4095, 4096], 512)])
 def test_kernel_return_lse_on_card(dtype, B, Skv, H, Hk, d, kv_len, block_k):
     """The kernel's lse (one split and merged splits) against the plain
-    version's in fp32 at 2e-5; its output under the card's rule."""
+    version's in fp32 at 2e-5, and its output, fp32 whatever the input
+    type (not rounded), at the same fp32 limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     q, k, v = (t.cuda() for t in to_torch(make_inputs(B, Skv, H, Hk, d, 5),
@@ -265,7 +306,8 @@ def test_kernel_return_lse_on_card(dtype, B, Skv, H, Hk, d, kv_len, block_k):
     want, want_lse = da.decode_attention_plain(q.float(), k.float(),
                                                v.float(), lens,
                                                return_lse=True)
-    np.testing.assert_allclose(out.float().cpu().numpy(), want.cpu().numpy(),
-                               atol=2e-5, rtol=CARD_RTOL[dtype])
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
                                atol=2e-5, rtol=2e-5)
