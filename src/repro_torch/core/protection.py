@@ -204,6 +204,8 @@ class KernelThrottle:
         self._credit = 0.0
         self._last_obs: float | None = None
         self.frozen = False               # graceful-exit freeze (§4.2)
+        self.granted = 0                  # quanta `should_launch` granted
+        self.refused = 0                  # and refused (frozen included)
 
     def observe(self, u_sm: float, c_sm: float, dt: float = 1.0) -> float:
         """Feed telemetry; returns the updated duty fraction."""
@@ -234,13 +236,17 @@ class KernelThrottle:
         return self.observe(u_sm, c_sm, dt)
 
     def should_launch(self, quantum: float = 1.0) -> bool:
-        """Credit-based gate: offline work may take `duty` fraction of time."""
+        """Credit-based gate: offline work may take `duty` fraction of time.
+        Each call counts in `granted` or `refused`."""
         if self.frozen:
+            self.refused += 1
             return False
         self._credit += self.duty * quantum
         if self._credit >= quantum:
             self._credit -= quantum
+            self.granted += 1
             return True
+        self.refused += 1
         return False
 
     def freeze(self) -> None:

@@ -27,6 +27,8 @@ import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.obs.spans import span
+
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import ssm_scan as _ssm
@@ -164,14 +166,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     (B,1,H,d) in q.dtype; with return_lse, (out (B,1,H,d) fp32, not yet
     rounded to q's type, lse (B,H) fp32), the log-sum-exp of each row's
     scores: what a merge over a cache split across devices needs to round
-    once."""
+    once.  The kernel's call is the span `decode.attention` (over
+    DTensors, each rank's call on its own rows)."""
     if _is_dtensor(q, k_cache):
         return _sharded_decode(q, k_cache, v_cache, kv_len, softcap,
                                return_lse)
-    _check_device(q, "decode_attention")
-    lens = _decode.kv_lengths(kv_len, q.shape[0], k_cache.shape[1], q.device)
-    out, lse = torch.ops.repro_torch.decode_attention(
-        q, k_cache, v_cache, lens, softcap, return_lse)
+    with span("decode.attention"):
+        _check_device(q, "decode_attention")
+        lens = _decode.kv_lengths(kv_len, q.shape[0], k_cache.shape[1],
+                                  q.device)
+        out, lse = torch.ops.repro_torch.decode_attention(
+            q, k_cache, v_cache, lens, softcap, return_lse)
     return (out, lse) if return_lse else out
 
 

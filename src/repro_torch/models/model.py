@@ -61,6 +61,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import kv_lengths
+from repro_torch.obs.spans import span
 from repro_torch.sharding.context import constrain
 
 from . import layers as L
@@ -503,62 +504,69 @@ def _forward_decode(params: Transformer, cfg: ModelConfig, batch: dict,
     mla = cfg.attn_kind == "mla"
     attn = [c for c, (mixer, _) in zip(cache, cfg.pattern)
             if mixer.startswith("attn")]
-    at = _attn_step(cfg, attn[0], pos, B, dev) if attn else None
+    with span("decode.prepare"):
+        at = _attn_step(cfg, attn[0], pos, B, dev) if attn else None
     mla_decode = L.pad_v(ops.decode_attention)
 
     x = _embed(params, cfg, tokens)
     for l, blk in enumerate(params.blocks):
-        i, r = l % P, l // P
-        c = cache[i]
-        h = L.rmsnorm(blk.norm1, x)
-        mixer, ffn = cfg.pattern[i]
-        if mixer == "mamba":
-            o, st = ssm.mamba_decode_step(blk.mixer, h, {
-                "h": c["h"][r], "conv": c["conv"][r]}, cfg)
-            for name, new in st.items():
-                c[name][r].copy_(new)
-            x = x + o
-        elif mixer == "mlstm":
-            o, st = ssm.mlstm_decode_step(blk.mixer, h, {
-                "carry": (c["C"][r], c["n"][r], c["m"][r]),
-                "conv": c["conv"][r]}, cfg)
-            for name, new in zip(("C", "n", "m", "conv"),
-                                 (*st["carry"], st["conv"])):
-                c[name][r].copy_(new)
-            x = x + o
-        elif mla:
-            ckv, kr = L.mla_latent(blk.attn, h, cfg, at.rope)
-            L.write_rows(c["ckv"][r], at.rows, at.slot, ckv[:, 0])
-            L.write_rows(c["kr"][r], at.rows, at.slot, kr[:, 0])
-            # keys and values expanded from the `live` rows the kernel reads
-            # only: `repro` expanded the whole cache, whose rows past kv_len
-            # are masked, to the same result
-            ckv, kr = L.live_rows(at.live, c["ckv"][r], c["kr"][r])
-            x = x + L.mla_attend(blk.attn, h, ckv, kr, cfg, at.rope,
-                                 attend=mla_decode, kv_len=at.lens)
-        else:
-            q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, at.rope)
-            kc, vc = c["k"][r], c["v"][r]
-            L.write_rows(kc, at.rows, at.slot, k[:, 0])
-            L.write_rows(vc, at.rows, at.slot, v[:, 0])
-            # every Sq == 1 attention takes the decode kernel, MHA included
-            # (`repro` sent MHA down its dense path: the same function);
-            # `repro` caps the scores on a plain cache, never on the ring
-            o = ops.decode_attention(q, *L.live_rows(at.live, kc, vc),
-                                     at.lens,
-                                     None if at.ring else cfg.softcap)
-            x = x + L.row_parallel(o.reshape(B, 1, H * dh), blk.attn.w_o)
-        if "xk" in c:
-            # the encoder's keys and values, every source row visible
-            h = L.rmsnorm(blk.norm_cross, x)
-            q = L.cross_project_q(blk.cross, h, cfg)
-            o = ops.decode_attention(q, c["xk"][r], c["xv"][r], at.src_lens)
-            x = x + L.row_parallel(o.reshape(B, 1, H * dh), blk.cross.w_o)
-        if ffn != "none":
-            x, _ = _ffn(blk, cfg, x)
-        x = constrain(x, "dp", None, None)
-    x = L.rmsnorm(params.final_norm, x)
-    return x[:, 0] @ params.lm_head, cache
+        with span("decode.layer"):
+            i, r = l % P, l // P
+            c = cache[i]
+            h = L.rmsnorm(blk.norm1, x)
+            mixer, ffn = cfg.pattern[i]
+            if mixer == "mamba":
+                o, st = ssm.mamba_decode_step(blk.mixer, h, {
+                    "h": c["h"][r], "conv": c["conv"][r]}, cfg)
+                for name, new in st.items():
+                    c[name][r].copy_(new)
+                x = x + o
+            elif mixer == "mlstm":
+                o, st = ssm.mlstm_decode_step(blk.mixer, h, {
+                    "carry": (c["C"][r], c["n"][r], c["m"][r]),
+                    "conv": c["conv"][r]}, cfg)
+                for name, new in zip(("C", "n", "m", "conv"),
+                                     (*st["carry"], st["conv"])):
+                    c[name][r].copy_(new)
+                x = x + o
+            elif mla:
+                ckv, kr = L.mla_latent(blk.attn, h, cfg, at.rope)
+                L.write_rows(c["ckv"][r], at.rows, at.slot, ckv[:, 0])
+                L.write_rows(c["kr"][r], at.rows, at.slot, kr[:, 0])
+                # keys and values expanded from the `live` rows the kernel
+                # reads only: `repro` expanded the whole cache, whose rows
+                # past kv_len are masked, to the same result
+                ckv, kr = L.live_rows(at.live, c["ckv"][r], c["kr"][r])
+                x = x + L.mla_attend(blk.attn, h, ckv, kr, cfg, at.rope,
+                                     attend=mla_decode, kv_len=at.lens)
+            else:
+                q, k, v = L.gqa_project_qkv(blk.attn, h, cfg, at.rope)
+                kc, vc = c["k"][r], c["v"][r]
+                L.write_rows(kc, at.rows, at.slot, k[:, 0])
+                L.write_rows(vc, at.rows, at.slot, v[:, 0])
+                # every Sq == 1 attention takes the decode kernel, MHA
+                # included (`repro` sent MHA down its dense path: the same
+                # function); `repro` caps the scores on a plain cache, never
+                # on the ring
+                o = ops.decode_attention(q, *L.live_rows(at.live, kc, vc),
+                                         at.lens,
+                                         None if at.ring else cfg.softcap)
+                x = x + L.row_parallel(o.reshape(B, 1, H * dh),
+                                       blk.attn.w_o)
+            if "xk" in c:
+                # the encoder's keys and values, every source row visible
+                h = L.rmsnorm(blk.norm_cross, x)
+                q = L.cross_project_q(blk.cross, h, cfg)
+                o = ops.decode_attention(q, c["xk"][r], c["xv"][r],
+                                         at.src_lens)
+                x = x + L.row_parallel(o.reshape(B, 1, H * dh),
+                                       blk.cross.w_o)
+            if ffn != "none":
+                x, _ = _ffn(blk, cfg, x)
+            x = constrain(x, "dp", None, None)
+    with span("decode.head"):
+        x = L.rmsnorm(params.final_norm, x)
+        return x[:, 0] @ params.lm_head, cache
 
 
 def _encoder_forward(params: Transformer, cfg: ModelConfig, batch: dict,

@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from repro_torch.obs.spans import span
 from repro_torch.sharding.context import constrain
 
 from . import layers as L
@@ -31,8 +32,9 @@ def make_decode_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def decode_step(params, cache, tokens, pos):
-        return forward(params, cfg, {"tokens": tokens}, mode="decode",
-                       cache=cache, pos=pos)
+        with span("decode.step"):
+            return forward(params, cfg, {"tokens": tokens}, mode="decode",
+                           cache=cache, pos=pos)
 
     return decode_step
 
@@ -222,36 +224,44 @@ def make_train_step(cfg: ModelConfig, optimizer, microbatches: int = 1):
             for w in weights:
                 w.requires_grad_(True)
             try:
-                loss, (ce, aux) = loss_fn(params, cfg, batch)
-                grads = torch.autograd.grad(loss, weights)
+                with span("train.forward"):
+                    loss, (ce, aux) = loss_fn(params, cfg, batch)
+                with span("train.backward"):
+                    grads = torch.autograd.grad(loss, weights)
             finally:
                 for w in weights:
                     w.requires_grad_(False)
         return loss.detach(), ce.detach(), aux.detach(), grads
 
     def train_step(params, opt_state, batch):
-        weights = list(params.parameters())
-        if microbatches == 1:
-            loss, ce, aux, grads = grads_of(weights, params, batch)
-        else:
-            n = len(next(iter(batch.values()))) // microbatches
-            zero = torch.zeros((), device=params.embed.device)
-            acc = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-                   for w in weights]
-            loss, ce, aux = zero, zero, zero
-            for i in range(microbatches):
-                part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l, c, a, grads = grads_of(weights, params, part)
-                for s, g in zip(acc, grads):
-                    s += g.float()
-                loss, ce, aux = loss + l, ce + c, aux + a
-                del grads
-            scale = 1.0 / microbatches
-            grads = [s.mul_(scale) for s in acc]
-            loss, ce, aux = loss * scale, ce * scale, aux * scale
-        _, opt_state, gnorm = optimizer.update(weights, grads, opt_state)
+        with span("train.step"):
+            weights = list(params.parameters())
+            if microbatches == 1:
+                loss, ce, aux, grads = grads_of(weights, params, batch)
+            else:
+                loss, ce, aux, grads = accumulated(weights, params, batch)
+            with span("train.optimizer"):
+                _, opt_state, gnorm = optimizer.update(weights, grads,
+                                                       opt_state)
         metrics = {"loss": loss, "ce": ce, "moe_aux": aux,
                    "grad_norm": gnorm}
         return params, opt_state, metrics
+
+    def accumulated(weights, params, batch):
+        n = len(next(iter(batch.values()))) // microbatches
+        zero = torch.zeros((), device=params.embed.device)
+        acc = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+               for w in weights]
+        loss, ce, aux = zero, zero, zero
+        for i in range(microbatches):
+            part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            l, c, a, grads = grads_of(weights, params, part)
+            for s, g in zip(acc, grads):
+                s += g.float()
+            loss, ce, aux = loss + l, ce + c, aux + a
+            del grads
+        scale = 1.0 / microbatches
+        grads = [s.mul_(scale) for s in acc]
+        return loss * scale, ce * scale, aux * scale, grads
 
     return train_step

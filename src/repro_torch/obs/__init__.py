@@ -7,7 +7,9 @@ See the submodule docstrings for the contracts; the short version:
   numpy/torch tick engines — sim time only, canonical JSON, sorted keys;
 * emission streams per window/row, so fleet-scale runs stay O(window) in
   memory;
-* wall-clock phase profiling is quarantined to stderr + BENCH_sim.json;
+* wall-clock phase profiling is quarantined to stderr + BENCH_sim.json,
+  and the serve and train steps' spans (`repro_torch.obs.spans`) to the
+  in-memory log of whoever attaches one;
 * alerting (`repro_torch.obs.alerts`) evaluates a deterministic rule catalog at
   metrics-window boundaries — incidents.jsonl inherits the byte-identity
   contract.
@@ -27,6 +29,7 @@ from repro_torch.obs.metrics import (METRICS_SCHEMA, FleetMetricsRecorder,
                                      MetricsRegistry)
 from repro_torch.obs.phases import PHASES, PhaseProfiler
 from repro_torch.obs.plane import OBS_SCHEMA, ObsConfig, ObsPlane
+from repro_torch.obs.spans import Span, SpanLog, attach, detach, span
 from repro_torch.obs.trace import (TRACE_SCHEMA, EventBusTracer, RequestTracer,
                                    TraceWriter)
 
@@ -40,5 +43,6 @@ __all__ = [
     "register_alert_rule", "read_incidents", "incidents_open_at",
     "TraceWriter", "EventBusTracer", "RequestTracer",
     "PhaseProfiler",
+    "Span", "SpanLog", "span", "attach", "detach",
     "JsonlWriter", "canonical_json", "prometheus_text", "lint_prometheus",
 ]
