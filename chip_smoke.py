@@ -3596,9 +3596,8 @@ def knobs_gemma(torch) -> dict:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.models import (init_cache, init_params,
-                                    make_decode_step, make_eval_step,
-                                    make_prefill, model)
+    from repro_torch.models import (forward, init_cache, init_params,
+                                    make_eval_step, make_prefill, model)
     from repro_torch.models import layers as L
     from repro_torch.models.steps import _copy_prefix_cache
     arch = "gemma-7b"
@@ -3641,13 +3640,16 @@ def knobs_gemma(torch) -> dict:
         return run
 
     def first_step(c, hid: list):
-        """The first decode step's logits; each layer's output in `hid`."""
+        """The first decode step's logits; each layer's output in `hid`.
+        The eager forward: the wrapped calls read the host, which no CUDA
+        graph of the step can hold."""
         _, cache = make_prefill(c)(params, batch)
         cache = _copy_prefix_cache(cache, init_cache(c, B, S + 1,
                                                      device="cuda"))
         with wrapped(model, "_ffn", record(hid)), \
-                wrapped(ops, "decode_attention", scores):
-            return make_decode_step(c)(params, cache, tok, S)[0].float()
+                wrapped(ops, "decode_attention", scores), torch.no_grad():
+            return forward(params, c, {"tokens": tok}, mode="decode",
+                           cache=cache, pos=S)[0].float()
 
     for c in (cfg, dataclasses.replace(cfg, softcap=None)):
         runs = []

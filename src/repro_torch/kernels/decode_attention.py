@@ -169,6 +169,13 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+def tile_rows(dev: torch.device, dtype: torch.dtype, H: int, Hk: int,
+              d: int) -> int:
+    """Cache rows of one K/V tile of the kernel that takes this dtype, G
+    and d on `dev`: the unit its splits are cut in."""
+    return _card_plan(_library(), dev, dtype, H, Hk, d)[0]
+
+
 def _card_plan(lib: ctypes.CDLL, dev: torch.device, dtype: torch.dtype,
                H: int, Hk: int, d: int) -> tuple[int, int, int]:
     """(tile rows, SM count, resident blocks an SM) of the kernel that

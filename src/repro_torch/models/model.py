@@ -445,50 +445,66 @@ class _AttnStep(NamedTuple):
     slot: torch.Tensor          # (B,) the cache row each sequence writes
     lens: torch.Tensor          # (B,) int32 rows each sequence's query reads
     src_lens: torch.Tensor      # (B,) int32 rows of the cross cache
-    live: int                   # the longest lens: caches are cut to it
+    live: int                   # rows the caches are cut to: the longest
+                                # lens or more
     rope: tuple                 # rotary angles at each sequence's position
     rows: torch.Tensor          # arange(B)
     ring: bool                  # the sliding window's ring cache
 
 
-def _attn_step(cfg: ModelConfig, c: dict, pos, B: int, dev) -> _AttnStep:
-    """Positions, lengths and rotary angles from `pos` and an attention
-    position's cache `c` (every attention position has the same rows)."""
+def decode_positions(cfg: ModelConfig, c: dict, pos, B: int
+                     ) -> tuple[torch.Tensor, int]:
+    """The host's half of a decode step's positions, from `pos` and an
+    attention position's cache `c` (every attention position has the same
+    rows): ((3, B) int32 on the host: the positions, the rows each
+    sequence's query reads and the cross attention's source rows; the
+    longest of those rows)."""
     mla = cfg.attn_kind == "mla"
     cap = c["ckv" if mla else "k"].shape[2]
     # `repro`'s ring: a sliding-window cache of exactly `window` rows, written
     # at slot pos % window.  Its valid slots are the first min(pos + 1, W)
     # (the softmax does not depend on their order), so the kernel reads them
     # with kv_len = min(pos + 1, W); rotary angles keep the absolute position.
-    ring = cfg.window is not None and cap == cfg.window
     # kv_len is checked against the capacity once, on the host; a pos on the
     # card is copied there first (one wait for the card), so that a position
     # past the cache raises instead of being clamped by the kernel
     host_pos = torch.as_tensor(pos).cpu().long().reshape(-1).expand(B)
     host_lens = host_pos + 1
-    if ring:
+    if _is_ring(cfg, cap):
         host_lens = torch.clamp(host_lens, max=cap)
     host_lens = kv_lengths(host_lens, B, cap, torch.device("cpu"))
-    # one copy to the card: the positions, the lengths and the cross
-    # attention's source rows (every row of the cross cache; 1, unread,
-    # without one) side by side
+    # the positions, the lengths and the cross attention's source rows
+    # (every row of the cross cache; 1, unread, without one) side by side,
+    # for one copy to the card
     src_len = c["xk"].shape[2] if "xk" in c else 1
     if src_len < 1:
         raise ValueError("the cross cache holds no source rows: size it with "
                          "init_cache(..., src_len=...) and fill it by prefill")
     pos_lens = torch.stack([host_pos.int(), host_lens,
-                            torch.full((B,), src_len, dtype=torch.int32)]
-                           ).to(dev)
+                            torch.full((B,), src_len, dtype=torch.int32)])
+    return pos_lens, int(host_lens.max())
+
+
+def _is_ring(cfg: ModelConfig, cap: int) -> bool:
+    return cfg.window is not None and cap == cfg.window
+
+
+def _attn_step(cfg: ModelConfig, c: dict, pos_lens: torch.Tensor, live: int,
+               dev) -> _AttnStep:
+    """Slots, lengths and rotary angles from `decode_positions`'s
+    `pos_lens` on the card; the caches are read up to `live` rows."""
+    mla = cfg.attn_kind == "mla"
+    cap = c["ckv" if mla else "k"].shape[2]
+    ring = _is_ring(cfg, cap)
     pos_b, lens, src_lens = pos_lens[0].long(), pos_lens[1], pos_lens[2]
     # MLA rotates its dr-wide part alone
     rope = L.rope_table(pos_b[:, None],
                         cfg.rope_head_dim if mla else cfg.head_dim,
                         cfg.rope_theta)
-    # attention reads the caches cut to the longest live sequence (a view):
-    # no row past it is visible, and the kernel sizes its split from it
-    return _AttnStep(pos_b % cap if ring else pos_b, lens, src_lens,
-                     int(host_lens.max()), rope,
-                     torch.arange(B, device=dev), ring)
+    # attention reads the caches cut to `live` rows (a view): no row past
+    # it is visible, and the kernel sizes its split from it
+    return _AttnStep(pos_b % cap if ring else pos_b, lens, src_lens, live,
+                     rope, torch.arange(pos_lens.shape[1], device=dev), ring)
 
 
 def _forward_decode(params: Transformer, cfg: ModelConfig, batch: dict,
@@ -499,13 +515,41 @@ def _forward_decode(params: Transformer, cfg: ModelConfig, batch: dict,
     layer's row at its slot."""
     dev = params.embed.device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    attn = _attn_caches(cfg, cache)
+    with span("decode.prepare"):
+        at = None
+        if attn:
+            pos_lens, live = decode_positions(cfg, attn[0], pos,
+                                              tokens.shape[0])
+            at = _attn_step(cfg, attn[0], pos_lens.to(dev), live, dev)
+    return _decode_layers(params, cfg, tokens, cache, at)
+
+
+def decode_on_card(params: Transformer, cfg: ModelConfig,
+                   tokens: torch.Tensor, cache: tuple,
+                   pos_lens: torch.Tensor, live: int):
+    """The decode step with `decode_positions`'s positions already on the
+    card (`pos_lens`, (3, B) int32) and its caches read up to `live` rows,
+    at least the longest sequence's: no call waits for the card or reads
+    the host, so a CUDA graph can capture it.  tokens: (B, 1) int64 on the
+    card.  -> (logits (B, Vpad), cache), the cache updated in place."""
+    with span("decode.prepare"):
+        at = _attn_step(cfg, _attn_caches(cfg, cache)[0], pos_lens, live,
+                        params.embed.device)
+    return _decode_layers(params, cfg, tokens, cache, at)
+
+
+def _attn_caches(cfg: ModelConfig, cache: tuple) -> list:
+    return [c for c, (mixer, _) in zip(cache, cfg.pattern)
+            if mixer.startswith("attn")]
+
+
+def _decode_layers(params: Transformer, cfg: ModelConfig,
+                   tokens: torch.Tensor, cache: tuple, at: _AttnStep | None):
+    """The decode step's layers and head from the step's positions `at`."""
     B = tokens.shape[0]
     H, dh, P = cfg.num_heads, cfg.head_dim, len(cfg.pattern)
     mla = cfg.attn_kind == "mla"
-    attn = [c for c, (mixer, _) in zip(cache, cfg.pattern)
-            if mixer.startswith("attn")]
-    with span("decode.prepare"):
-        at = _attn_step(cfg, attn[0], pos, B, dev) if attn else None
     mla_decode = L.pad_v(ops.decode_attention)
 
     x = _embed(params, cfg, tokens)

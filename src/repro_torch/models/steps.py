@@ -11,6 +11,7 @@ from repro_torch.obs.spans import span
 from repro_torch.sharding.context import constrain
 
 from . import layers as L
+from .decode_graph import DecodeStep
 from .model import ModelConfig, forward, init_cache
 
 
@@ -25,18 +26,12 @@ def make_prefill(cfg: ModelConfig):
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig) -> DecodeStep:
     """decode_step(params, cache, tokens (B,1), pos) -> (logits (B,Vpad),
     cache): one token for the whole batch against the standing cache, which
-    is updated in place."""
-
-    @torch.no_grad()
-    def decode_step(params, cache, tokens, pos):
-        with span("decode.step"):
-            return forward(params, cfg, {"tokens": tokens}, mode="decode",
-                           cache=cache, pos=pos)
-
-    return decode_step
+    is updated in place; on the card replayed from CUDA graphs where the
+    call allows (`decode_graph`)."""
+    return DecodeStep(cfg)
 
 
 def _num_patches(cfg: ModelConfig, batch: dict) -> int:

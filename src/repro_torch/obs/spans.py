@@ -22,8 +22,12 @@ the reader's business.
 The spans of the port:
 
   decode.step       `models/steps.make_decode_step`'s step
+  decode.replay     the step's replay of a CUDA graph
+                    (`models/decode_graph.DecodeStep`)
+  decode.capture    the capture of one of the step's CUDA graphs
   decode.prepare    the step's positions, lengths and rotary angles
-                    (`models/model._attn_step`: the one host-to-device copy)
+                    (`models/model._attn_step`; eagerly, after the one
+                    host-to-device copy)
   decode.layer      one layer of the decode step
   decode.attention  `kernels/ops.decode_attention`'s kernel call
   decode.head       the final norm and the `lm_head` product
@@ -31,6 +35,11 @@ The spans of the port:
   train.forward     the loss's forward
   train.backward    `torch.autograd.grad` of the loss
   train.optimizer   `optimizer.update` (clipping and the update)
+
+A step replayed from a CUDA graph runs no Python inside it: its
+`decode.prepare`, `decode.layer`, `decode.attention` and `decode.head` are
+recorded when the graph is captured (under `decode.capture`) and not at
+its replays, which record `decode.step` and `decode.replay` alone.
 
 QUARANTINED like `phases.PhaseProfiler`: these numbers are wall clock and
 never enter a deterministic artifact.
