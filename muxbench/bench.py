@@ -2,11 +2,21 @@
 
 The cell (an entry of `workloads` in BENCHMARK.json) names a
 configuration (`muxbench/configs/<config>.json`) and a traffic mix
-(`muxbench/mixes/<traffic>.json`).  The mix names the implementation of
-its online side and of its offline side (`muxbench/sides/<impl>.py`),
-and each per-layer metric is read by `muxbench/metrics/<metric>.py`: the
-harness finds every piece by its name, so a new cell, mix, side or metric
-is a new file and a new entry.
+(`muxbench/mixes/<traffic>.json`).  The configuration names its plain
+reference (`muxbench/reference/<reference>.py`), which also gives a
+step's work counts; the mix names the implementation of its online side
+and of its offline side (`muxbench/sides/<impl>.py`), and each per-layer
+metric is read by `muxbench/metrics/<metric>.py`: the harness finds every
+piece by its name, so a new configuration, cell, mix, side or metric is a
+new file and a new entry.  The check's limits are the configuration's,
+with those a cell sets from its own readings
+(`muxbench/limits/<cell>.json`) over them.
+
+A traced run hands each reader `rd`: the loop's record (`rec`), the
+device trace's summary (`trace`), the program's spans joined to it
+(`spans`, `muxbench/spans.py`), and the program's counters as deltas
+(`counters`: "before", from the window's start to the traced stretch's,
+and "traced", from there to the close).
 """
 from __future__ import annotations
 
@@ -51,8 +61,15 @@ def resolve(bench: dict, workload: str, base: Path = HERE) -> dict:
                for m in per_layer}
     sides = {side: base / "sides" / f"{mix[side]['impl']}.py"
              for side in ("online", "offline") if mix.get(side)}
+    reference = base / "reference" / f"{config['reference']}.py"
+    # a cell may set its own limit for a number, from its own readings
+    limits = dict(config["limits"])
+    own = base / "limits" / f"{workload}.json"
+    if own.exists():
+        limits.update(json.loads(own.read_text()))
     return {"cell": cell, "config": config, "mix": mix, "e2e": e2e,
-            "per_layer": per_layer, "readers": readers, "sides": sides}
+            "per_layer": per_layer, "readers": readers, "sides": sides,
+            "reference": reference, "limits": limits}
 
 
 def port_config(config: dict):
@@ -99,13 +116,14 @@ def run(parts: dict, *, seed: int, seconds: float, trace: bool,
     the harness's own tests on the CPU."""
     import torch
 
-    from muxbench import arrivals as A, loop, trace as T, weights, work
+    from muxbench import arrivals as A, loop, spans as S, trace as T, \
+        weights, work
     from repro_torch.core.multiplexer import Multiplexer, MuxConfig
 
     config, mix = parts["config"], parts["mix"]
     dev = torch.device(device or "cuda")
     cfg = port_config(config)
-    ref = load_module(HERE / "reference" / f"{config['reference']}.py")
+    ref = load_module(parts["reference"])
     model = dict(config["model"])
     served = cfg.dtype
     lines = []
@@ -118,7 +136,7 @@ def run(parts: dict, *, seed: int, seconds: float, trace: bool,
     clock = clock or loop.WallClock
     ctx = SimpleNamespace(device=dev, cfg=cfg, model=model, served=served,
                           dtype_name=str(served).split(".")[-1], seed=seed,
-                          sync=sync, clock=clock.now)
+                          sync=sync, clock=clock.now, ref=ref)
     sides = {side: load_module(p).Side(ctx, mix[side])
                for side, p in parts["sides"].items()}
     online, offline = sides["online"], sides.get("offline")
@@ -151,21 +169,40 @@ def run(parts: dict, *, seed: int, seconds: float, trace: bool,
     mux = Multiplexer(lambda b: 0.0, lambda: 0.0, online.base_s, 1.0,
                       MuxConfig(**mix["mux"]))
     works = {}
+    traced_jobs = []        # the offline steps the traced stretch held
 
     def side_fn(side):
         def step(*a):
             i = side.step(*a)
             works[(side.kind, i)] = side.work(i)
+            if tracer and tracer.active and side.kind == "offline":
+                traced_jobs.append(i)
             return i
         return step
 
     trace_from = seconds - mix["trace_seconds"]
+    counts = {}             # the counters at the window's start, the
+                            # traced stretch's and the close
+
+    def counters():
+        c = {"granted": mux.throttle.granted, "refused": mux.throttle.refused}
+        for d in sides.values():
+            c.update(d.counters())
+        return c
 
     def on_turn(t):
         if t is None:
+            if offline is not None and tracer.active and not traced_jobs:
+                # the throttle granted the job no step in the stretch (its
+                # PID starves the job after a stall, PERF.md): the step
+                # after the close is traced for the train step's readers,
+                # and left out of the trace's summary
+                tracer.end_stretch()
+                offline.step_after_close()
             tracer.stop()
             return False
         if t >= trace_from and not tracer.active:
+            counts["traced"] = counters()
             tracer.start()
         return tracer.active
 
@@ -176,12 +213,16 @@ def run(parts: dict, *, seed: int, seconds: float, trace: bool,
     setup_s = t_window - t_process
     if offline is not None:
         offline.arm(t_window, seconds)
+    if tracer:
+        counts["window"] = counters()
     rec = loop.run_window(
         times, seconds, side_fn(online),
         side_fn(offline) if offline else None, mux.throttle,
         max_batch=mux.cfg.max_batch, quantum=mux.cfg.quantum_s,
         base_s=online.base_s, slo_slowdown=mux.cfg.slo_slowdown,
         clock=clock, on_turn=on_turn if tracer else None)
+    if tracer:
+        counts["close"] = counters()
     gc.unfreeze()
     for s in rec.spans:
         s.work = works[(s.kind, s.step)]
@@ -207,8 +248,8 @@ def run(parts: dict, *, seed: int, seconds: float, trace: bool,
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-    limits = config["limits"]
-    checks = {k: {"value": numbers[k], "limit": v} for k, v in limits.items()}
+    checks = {k: {"value": numbers[k], "limit": v}
+              for k, v in parts["limits"].items()}
     lat = rec.latency
     answered = ~np.isnan(lat)
     correct = bool(answered.all()) and all(
@@ -232,9 +273,18 @@ def run(parts: dict, *, seed: int, seconds: float, trace: bool,
 
     if trace:
         summary = tracer.summary(rec)
-        lines.append(trace_line(rec, summary))
+        lines.append(trace_line(rec, summary, len(traced_jobs)))
+        joined = S.join(tracer.events, tracer.spans)
+        lines.append(S.line(joined, tracer.dropped))
+        cut = counts.get("traced", counts["close"])
+        deltas = {"before": delta(counts["window"], cut),
+                  "traced": delta(cut, counts["close"])}
+        lines.append("[counters] " + " ".join(
+            f"{part}.{k}={v}" for part, d in deltas.items()
+            for k, v in d.items()))
         rd = SimpleNamespace(rec=rec, trace=summary, model=model,
-                             peak_flops=work.PEAK_FLOPS[ctx.dtype_name])
+                             peak_flops=work.PEAK_FLOPS[ctx.dtype_name],
+                             spans=joined, counters=deltas)
         metrics = {}
         for m in parts["per_layer"]:
             v = load_module(parts["readers"][m["name"]]).read(rd)
@@ -264,10 +314,11 @@ def run(parts: dict, *, seed: int, seconds: float, trace: bool,
     return out
 
 
-def trace_line(rec, summary: dict) -> str:
+def trace_line(rec, summary: dict, job_steps: int) -> str:
     """What the traced stretch held against the window before it: the
-    offline steps' share of the wall time in each, and the device's busy
-    seconds by the loop's step they fell in."""
+    offline steps' share of the wall time in each, the job's steps in the
+    stretch (0: its step after the close was traced instead), and the
+    device's busy seconds by the loop's step they fell in."""
     def share(lo, hi):
         return 100.0 * sum(max(0.0, min(s.end, hi) - max(s.start, lo))
                            for s in rec.spans if s.kind == "offline") \
@@ -275,8 +326,14 @@ def trace_line(rec, summary: dict) -> str:
     cut = rec.trace_from if rec.trace_from is not None else rec.seconds
     return (f"[trace] offline_share_before_pct={share(0.0, cut)} "
             f"offline_share_traced_pct={share(cut, rec.seconds)} "
+            f"job_steps_traced={job_steps} "
             f"busy_s={summary['busy_s']} window_s={summary['window_s']} "
             f"busy_by_step={summary['busy_by_step']}")
+
+
+def delta(a: dict, b: dict) -> dict:
+    """Each counter's growth from reading a to reading b."""
+    return {k: b[k] - a[k] for k in a}
 
 
 def thirds(due, lat_ms, seconds: float) -> str:

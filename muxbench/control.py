@@ -51,8 +51,7 @@ def readings(parts: dict, seed: int, dev, steps: int | None = None,
     config, mix = parts["config"], parts["mix"]
     m = dict(config["model"])
     served = getattr(torch, config["dtype"])
-    ref = bench.load_module(bench.HERE / "reference"
-                            / f"{config['reference']}.py")
+    ref = bench.load_module(parts["reference"])
     leaves = ref.leaves(m)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,6 +1,7 @@
 """Model FLOPs of the online steps (every projection at the served batch,
-attention over the keys each row sees; `muxbench/work.py`) over their wall
-time and the card's bf16 peak, outside the traced stretch."""
+attention over the keys each row sees; the step's `work`, from the
+configuration's reference module) over their wall time and the card's
+bf16 peak, outside the traced stretch."""
 from muxbench.metrics._spans import untraced
 
 

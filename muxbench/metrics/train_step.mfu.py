@@ -1,7 +1,7 @@
 """Model FLOPs of the offline train steps (forward and backward of every
 projection, the top-k experts, attention; no recomputation counted;
-`muxbench/work.py`) over their wall time and the card's bf16 peak,
-outside the traced stretch."""
+the step's `work`, from the configuration's reference module) over their
+wall time and the card's bf16 peak, outside the traced stretch."""
 from muxbench.metrics._spans import untraced
 
 

@@ -16,6 +16,12 @@ here so that both sides compute one function:
   * RMSNorm's epsilon is 1e-6 (published 1e-5), and the vocabulary is
     padded to a multiple of `vocab_pad_multiple`, the padded columns left
     out of the logits.
+
+`decode_step_work` and `train_step_work` give a step's model FLOPs and
+each kernel call's least time at the card's peaks, by kernel name, from
+`muxbench/work.py`'s counts for this architecture; the sides and the
+metric readers take them from here, so that another architecture brings
+its own counts in its own reference file.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from muxbench import work
 
 NORM_EPS = 1e-6
 
@@ -182,3 +190,21 @@ def adamw_update(p, mo, v, t: int, h: dict):
     upd = (mo / (1 - h["b1"] ** t)) / ((v / (1 - h["b2"] ** t)).sqrt()
                                        + h["eps"])
     return lr_at(h, t) * (upd + h["weight_decay"] * p)
+
+
+def decode_step_work(m: dict, batch: int, pos: int, dtype: str) -> dict:
+    """One decode step of `batch` rows at position `pos`: its model FLOPs
+    and, under "least_s", the least seconds of its decode-attention calls
+    (every layer's; bytes and operations at the peaks)."""
+    kv = work.visible_keys(pos, m)
+    ms, _ = work.bound(
+        work.decode_attention_bytes(m, batch, kv, dtype),
+        {"mm": (work.decode_attention_flops(m, batch, kv),
+                work.PEAK_FLOPS[dtype])})
+    return {"flops": work.decode_step_flops(m, batch, pos),
+            "least_s": {"decode_attention": m["num_layers"] * ms / 1e3}}
+
+
+def train_step_work(m: dict, batch: int, seq: int, dtype: str) -> dict:
+    """One train step of `batch` x `seq` tokens: its model FLOPs."""
+    return {"flops": work.train_step_flops(m, batch, seq), "least_s": {}}

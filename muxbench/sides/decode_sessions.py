@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from muxbench import weights, work
+from muxbench import weights
 
 
 class Side:
@@ -95,17 +95,17 @@ class Side:
         return self.i + requests <= self.room
 
     def work(self, i: int) -> dict:
-        """Model FLOPs of step i and its decode-attention calls' least
-        time at the peaks (bytes and operations of every layer's call)."""
-        m = self.ctx.model
-        pos = self.P + i
-        kv = work.visible_keys(pos, m)
-        ms, _ = work.bound(
-            work.decode_attention_bytes(m, self.B, kv, self.ctx.dtype_name),
-            {"mm": (work.decode_attention_flops(m, self.B, kv),
-                    work.PEAK_FLOPS[self.ctx.dtype_name])})
-        return {"flops": work.decode_step_flops(m, self.B, pos),
-                "attn_bound_s": m["num_layers"] * ms / 1e3}
+        """Model FLOPs of step i and each kernel call's least time at the
+        peaks, from the configuration's reference module."""
+        ctx = self.ctx
+        return ctx.ref.decode_step_work(ctx.model, self.B, self.P + i,
+                                        ctx.dtype_name)
+
+    def counters(self) -> dict:
+        """The decode step's own counts: steps replayed from a CUDA graph,
+        graphs captured, steps run eagerly."""
+        return {k: getattr(self.decode, k)
+                for k in ("replays", "captures", "eager")}
 
     def close(self) -> None:
         """Keeps the outputs to be judged on the host; drops the program's

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import torch
 
-from muxbench import weights, work
+from muxbench import weights
 
 
 def leaf_gap(prog: list, refn: list, skip=()) -> float:
@@ -70,6 +70,7 @@ class Side:
         self.tokens_per_step = self.B * self.S
         self.check_at = None      # clock time after which a step is checked
         self.win = None           # the checked window step's readings
+        self.after_close = False  # the checked step came after the close
 
     def setup(self, params, initial: dict) -> None:
         from repro_torch.models import make_train_step
@@ -155,17 +156,32 @@ class Side:
                 "update_leaf": u, "batch": batch.clone()}
 
     def work(self, i: int) -> dict:
-        return {"flops": work.train_step_flops(self.ctx.model, self.B, self.S),
+        """Model FLOPs of a step and its tokens, from the configuration's
+        reference module."""
+        ctx = self.ctx
+        return {**ctx.ref.train_step_work(ctx.model, self.B, self.S,
+                                          ctx.dtype_name),
                 "tokens": self.tokens_per_step}
+
+    def counters(self) -> dict:
+        """The job counts nothing of its own: the throttle's counts are
+        the loop's."""
+        return {}
+
+    def step_after_close(self) -> int:
+        """One more step through the same call once the window has
+        closed, checked where the window checked none."""
+        if self.win is None:
+            self.after_close = True
+            self.check_at = float("-inf")
+        return self.step()
 
     def close(self) -> None:
         """Checks one step after the close where the window checked none;
         drops the program's state (the copy of the checked step's state
         stays for the reference)."""
-        self.after_close = self.win is None
-        if self.after_close:
-            self.check_at = float("-inf")
-            self.step()
+        if self.win is None:
+            self.step_after_close()
         for name in ("params", "state", "train", "batches", "opt"):
             setattr(self, name, None)
 

@@ -18,13 +18,14 @@ Per span name the join gives the count, the host time and the host self
 time (the span's time less its child spans'), and the device time and the
 number of the operations attributed to the span, alone and with its
 children's; and as a check of the clocks, the share of `decode_partial`
-launches whose runtime call lies inside a `decode.attention` span.
+operations whose runtime call lies where it must: inside a
+`decode.attention` span for a kernel launched on its own, inside a
+`decode.replay` span for one that a replayed CUDA graph ran (its runtime
+call is the graph's one `cudaGraphLaunch`).
 
-A run does not call the join yet: `trace.Tracer` attaches no span log.
-Reading it takes three edits to the run: `Tracer.start` attaching the
-log (`repro_torch.obs.spans.attach`), `Tracer.stop` detaching it and
-moving its spans onto the profiler's clock, and `bench.run` passing
-`join`'s reading to the metric readers and printing `line`.
+`trace.Tracer` attaches the program's log over the traced stretch and
+moves its spans onto the profiler's clock; `bench.run` hands `join`'s
+reading to the metric readers and prints `line`.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import bisect
 from collections import defaultdict
 
 CHECK_KERNEL, CHECK_SPAN = "decode_partial", "decode.attention"
+GRAPH_CALL, GRAPH_SPAN = "cudaGraphLaunch", "decode.replay"
 FIELDS = ("count", "host_ms", "self_host_ms", "device_ms", "device_ms_all",
           "launches", "launches_all")
 
@@ -71,20 +73,23 @@ def owner_at(t: float, timeline: tuple) -> int:
 
 
 def device_ops(events) -> list:
-    """(launch ns or None, start ns, end ns, name) of each device
-    operation, its launch the start of the runtime call of the same
-    correlation id."""
+    """(launch ns or None, start ns, end ns, name, runtime call) of each
+    device operation, its launch the start of the runtime call of the
+    same correlation id and its runtime call that call's name."""
     from torch.autograd import DeviceType
     calls, dev = {}, []
     for e in events:
         cid = e.correlation_id()
         if e.device_type() == DeviceType.CPU:
             if cid:
-                calls.setdefault(cid, e.start_ns())
+                calls.setdefault(cid, (e.start_ns(), e.name()))
         else:
             dev.append((cid, e.start_ns(), e.end_ns(), e.name()))
-    return [(calls.get(cid) if cid else None, a, b, name)
-            for cid, a, b, name in dev]
+    out = []
+    for cid, a, b, name in dev:
+        launch, call = calls.get(cid, (None, None)) if cid else (None, None)
+        out.append((launch, a, b, name, call))
+    return out
 
 
 def join(events, spans: list) -> dict | None:
@@ -100,14 +105,15 @@ def join(events, spans: list) -> dict | None:
     ops = device_ops(events)
     self_ns, self_ops = [0] * n, [0] * n
     unlinked = outside = checked = inside = 0
-    for launch, a, b, name in ops:
+    for launch, a, b, name, call in ops:
         if launch is None:
             unlinked += 1
             continue
         i = owner_at(launch, timeline)
         if CHECK_KERNEL in name:
             checked += 1
-            inside += CHECK_SPAN in ancestry(spans, i)
+            inside += (GRAPH_SPAN if call == GRAPH_CALL else CHECK_SPAN) \
+                in ancestry(spans, i)
         if i < 0:
             outside += 1
             continue

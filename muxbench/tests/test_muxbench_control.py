@@ -13,7 +13,7 @@ from muxbench import bench, control
 def test_control_fails_on_the_card(cell, cuda_device):
     b = bench_json()
     parts = bench.resolve(b, cell)
-    limits = parts["config"]["limits"]
+    limits = parts["limits"]
     for seed in (SEED, SEED + 1, SEED + 2):
         got = control.readings(parts, seed, cuda_device,
                                seconds=b["run_seconds"])

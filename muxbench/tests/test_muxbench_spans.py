@@ -1,8 +1,9 @@
 """The join of the program's spans to the device trace
 (`muxbench/spans.py`), on synthetic profiler events: kernels go to the
 innermost span that holds their launch, whatever the thread; self times
-and counts; the clock check; a trace without device operations; and the
-port's own span log as the join takes it."""
+and counts; the clock check, for kernels launched one by one and for a
+replayed CUDA graph's; a trace without device operations; and the port's
+own span log as the join takes it."""
 import time
 
 import pytest
@@ -111,6 +112,31 @@ def test_clock_check(shift):
     assert check == (1.0 if shift < 5 else 0.0)
 
 
+@pytest.mark.parametrize("shift", [0, 30])
+def test_clock_check_follows_a_replayed_graph(shift):
+    """A replayed step's kernels hang off the one `cudaGraphLaunch` inside
+    `decode.replay`: they count as inside while that call lies in the
+    span, and go to it and to `decode.step` by their correlation id."""
+    spans = [("decode.step", shift, 100 + shift, -1),
+             ("decode.replay", 40 + shift, 60 + shift, 0)]
+    events = [Ev(45, 47, "cudaGraphLaunch", cid=1),
+              Ev(70, 80, "decode_partial<64>", cuda=True, cid=1),
+              Ev(81, 90, "decode_partial<64>", cuda=True, cid=1),
+              Ev(91, 99, "gemm", cuda=True, cid=1)]
+    got = S.join(events, spans)
+    n = got["names"]
+    assert got["clock_check"] == (1.0 if shift == 0 else 0.0)
+    if shift == 0:
+        assert n["decode.replay"]["launches"] == 3
+        assert n["decode.step"]["launches_all"] == 3
+        assert n["decode.step"]["device_ms_all"] == approx(27e-6)
+    # a kernel launched on its own must lie in `decode.attention`, even
+    # inside `decode.replay`
+    alone = launch(2, 50, "decode_partial<64>", 100, 110)
+    assert S.join(alone, [("decode.replay", 40, 60, -1)])["clock_check"] \
+        == 0.0
+
+
 def test_without_device_operations_no_device_reading():
     """CPU events alone (a run on the CPU, or runtime calls whose kernels
     the profiler lost): the spans' counts and host times, and no device
@@ -165,3 +191,24 @@ def test_the_program_log_joins():
     assert n["decode.step"]["launches"] == 0
     assert n["decode.step"]["launches_all"] == 2
     assert n["decode.step"]["host_ms"] >= 2.0
+
+
+def test_the_summary_stops_at_the_end_of_the_stretch():
+    """What the profiler records after `end_stretch` (the job's step after
+    the close) is joined to the spans and left out of the summary."""
+    from types import SimpleNamespace
+
+    from muxbench import trace as T
+    tracer = T.Tracer.__new__(T.Tracer)
+    tracer.events, tracer.offset_ns, tracer.end_ns = EVENTS, 0, None
+    rec = SimpleNamespace(t0=0.0, spans=[])
+    whole = tracer.summary(rec)
+    tracer.end_ns = 200                 # before the train step's launches
+    cut = tracer.summary(rec)
+    assert whole["busy_s"] == approx((39 + 26 + 38 + 29 + 28 + 10) / 1e9)
+    assert cut["busy_s"] == approx(39 / 1e9)
+    assert cut["window_s"] == approx((133 - 5) / 1e9)
+    assert "adamw" in whole["kernels"] and "adamw" not in cut["kernels"]
+    # the join keeps every event
+    assert S.join(tracer.events, SPANS)["names"]["train.optimizer"][
+        "launches"] == 1

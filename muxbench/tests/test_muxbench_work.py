@@ -1,9 +1,11 @@
-"""The work counts against hand counts at the configuration's shapes."""
+"""The work counts against hand counts at the configuration's shapes; the
+sides take a step's counts from the configuration's reference module."""
 import json
+from types import SimpleNamespace
 
 from conftest import ROOT
 
-from muxbench import work
+from muxbench import bench, work
 
 
 def model(name):
@@ -45,3 +47,64 @@ def test_bound_picks_the_slower_side():
     assert by == "bytes" and abs(ms - 1.0) < 1e-12
     ms, by = work.bound(0.0, {"bf16": (989e12, 989e12)})
     assert by == "operations" and abs(ms - 1e3) < 1e-9
+
+
+def test_sides_take_the_counts_of_the_reference_module():
+    """danube's reference gives `work.py`'s counts, to the bit; a stub
+    reference's counts are what the sides report."""
+    m = model("h2o-danube-1.8b")
+    ref = bench.load_module(ROOT / "muxbench" / "reference" / "gqa_decoder.py")
+    online = bench.load_module(ROOT / "muxbench" / "sides"
+                               / "decode_sessions.py")
+    offline = bench.load_module(ROOT / "muxbench" / "sides" / "train_step.py")
+    spec = {"sessions": 8, "prompt_len": 2048, "cache_rows": 4352}
+    ctx = SimpleNamespace(ref=ref, model=m, dtype_name="bfloat16")
+    got = online.Side(ctx, spec).work(953)
+    ms, _ = work.bound(work.decode_attention_bytes(m, 8, 3002),
+                       {"mm": (work.decode_attention_flops(m, 8, 3002),
+                               989e12)})
+    assert got == {"flops": work.decode_step_flops(m, 8, 3001),
+                   "least_s": {"decode_attention": 24 * ms / 1e3}}
+    train = offline.Side(ctx, {"batch": 2, "seq": 2048}).work(0)
+    assert train == {"flops": work.train_step_flops(m, 2, 2048),
+                     "least_s": {}, "tokens": 4096}
+
+    class Stub:
+        @staticmethod
+        def decode_step_work(m, batch, pos, dtype):
+            return {"flops": float(batch * pos), "least_s": {"k": 1.0}}
+
+        @staticmethod
+        def train_step_work(m, batch, seq, dtype):
+            return {"flops": 7.0, "least_s": {"k2": 2.0}}
+    ctx.ref = Stub
+    assert online.Side(ctx, spec).work(2) == {"flops": 8.0 * 2050,
+                                              "least_s": {"k": 1.0}}
+    assert offline.Side(ctx, {"batch": 2, "seq": 8}).work(0) == {
+        "flops": 7.0, "least_s": {"k2": 2.0}, "tokens": 16}
+
+
+def test_ctx2k_attention_work():
+    """B2 x 2048 holds the tokens of B8 x 512 with 4x the causal keys a
+    query sees: about 5 % more model FLOPs a step."""
+    m = model("h2o-danube-1.8b")
+    short, long = work.train_step_flops(m, 8, 512), \
+        work.train_step_flops(m, 2, 2048)
+    keys = (2 * 2048 * 2049 // 2) / (8 * 512 * 513 // 2)
+    assert abs(keys - 4.0) < 0.01
+    assert 1.03 < long / short < 1.07
+
+
+def test_smoke_sizes_come_from_the_configuration():
+    """The CPU tests' sizes are the configuration file's `smoke`; a run
+    reads `model` alone."""
+    from conftest import bench_json, smoke_parts
+    for cell in bench_json()["workloads"]:
+        parts = smoke_parts(cell["name"])
+        config = json.loads((ROOT / [c["file"] for c in bench_json()["configs"]
+                                     if c["name"] == cell["config"]][0])
+                            .read_text())
+        assert parts["config"]["model"] == {**config["model"],
+                                            **config["smoke"]}
+        full = bench.resolve(bench_json(), cell["name"])["config"]["model"]
+        assert full == config["model"]

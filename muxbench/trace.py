@@ -14,6 +14,16 @@ device operations is put down to what the host was doing at its middle:
 the loop's step there (`mux.online`, `mux.offline`, or `mux.loop` between
 steps), from the loop's own record on the host clock, and the runtime call
 the profiler recorded there.
+
+Where the job ran no step in the stretch, the stretch ends at the
+window's close and the profiler stays on for one step of the job after
+it (`end_stretch`): that step is joined to the spans, and is no part of
+the summary.
+
+Over the same stretch the tracer attaches the program's span log
+(`repro_torch.obs.spans`); once stopped, `spans` holds its spans as
+(name, start ns, end ns or None, parent) on the profiler's clock and
+`dropped` the spans past the log's cap, for `muxbench/spans.py`'s join.
 """
 from __future__ import annotations
 
@@ -34,7 +44,10 @@ class Tracer:
         self.prof = None
         self.active = False
         self.events = []
+        self.spans = []
+        self.dropped = 0
         self.offset_ns = 0
+        self.end_ns = None    # the stretch's end, where a step follows it
 
     def warm_up(self) -> None:
         """One short profile in set-up, so that the profiler's own start
@@ -44,19 +57,34 @@ class Tracer:
             torch.ones(8, device=self.device).sum()
 
     def start(self) -> None:
+        from repro_torch.obs import spans
         self.prof = self.torch.profiler.profile(activities=self.acts)
         self.prof.start()
         self.active = True
         # the profiler's clock is the system's real-time clock, in ns
         self.offset_ns = time.time_ns() - time.perf_counter_ns()
+        spans.attach()
+
+    def end_stretch(self) -> None:
+        """Ends the traced stretch while the profiler stays on: what is
+        recorded from now is joined to the program's spans and left out of
+        `summary`."""
+        self.end_ns = time.perf_counter_ns() + self.offset_ns
 
     def stop(self) -> None:
         if not self.active:
             return
+        from repro_torch.obs import spans
+        log = spans.detach()
         self.prof.stop()
         self.active = False
         self.events = self.prof.profiler.kineto_results.events()
         self.prof = None
+        off = self.offset_ns
+        self.spans = [(s.name, s.start_ns + off,
+                       None if s.end_ns is None else s.end_ns + off, s.parent)
+                      for s in log.spans()]
+        self.dropped = log.dropped
 
     def summary(self, rec) -> dict:
         """The trace's reading, with the loop's record `rec` (its steps on
@@ -64,7 +92,9 @@ class Tracer:
         steps = [(int((rec.t0 + s.start) * 1e9) + self.offset_ns,
                   int((rec.t0 + s.end) * 1e9) + self.offset_ns,
                   f"mux.{s.kind}") for s in rec.spans]
-        return summarize(self.events, steps)
+        events = self.events if self.end_ns is None else \
+            [e for e in self.events if e.start_ns() < self.end_ns]
+        return summarize(events, steps)
 
 
 def union(intervals: list) -> list:
